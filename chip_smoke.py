@@ -20,9 +20,11 @@ Phases (any failure exits non-zero and prints no result line):
    weights from a seed) served by ``ContinuousEngine(capacity=8,
    max_len=1024)`` with ``ServingRuntime(backend="cuda")``: 12 prompts
    of 32-200 tokens, 24 new tokens each at temperature 0.8; every step
-   must be exactly 2 launches, both ``cuda``, and both kernels'
-   launch counters must move; then ``torch.profiler`` over 3 steady
-   steps of 8 live requests says where a step's time goes;
+   must be exactly 2 launches, both ``cuda``, one of each kernel; real
+   model logits rows go through the flush on the kernels and on their
+   plain version; then 3 steady steps of 8 live requests are timed, and
+   3 more under ``torch.profiler`` say where a step's time goes; an
+   engine without a runtime samples on the card, with no host copy;
 5. times at the main-path shape (K=8, V=92544): each kernel's device
    time (``torch.profiler``) and its wrapper's time per call (CUDA
    events), its plain version, its bound, and library yardsticks the
@@ -229,13 +231,17 @@ def reference_check(device) -> None:
         raise AssertionError(f"card and CPU logits differ by {err}")
 
 
+KERNELS = ("row_reduction", "rows_elementwise")
+STEP_LAUNCHES = (2, {"cuda": 2}, {k: 1 for k in KERNELS})
+
+
 def main_path(device) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core import dispatch
-    from repro_torch.core.backends import cuda as cuda_be
+    from repro_torch.models import transformer
     from repro_torch.models.schema import count_params, init_params
     from repro_torch.runtime import ServingRuntime
     from repro_torch.serving.engine import ContinuousEngine
@@ -250,19 +256,6 @@ def main_path(device) -> dict:
         f"V={cfg.vocab_size} {cfg.dtype}, {count_params(params) / 1e9:.3f} B "
         f"params, init {time.perf_counter() - t0:.1f} s")
     rt = ServingRuntime(backend="cuda", window=1.0, max_batch=64)
-    flush_s: list = []
-    flushed: list = []
-    run_batch = rt._run_batch
-
-    def timed_run_batch(family, X, shared, backend=None, row_lens=None):
-        t = time.perf_counter()
-        out = run_batch(family, X, shared, backend=backend, row_lens=row_lens)
-        torch.cuda.synchronize()
-        flush_s.append(time.perf_counter() - t)
-        flushed[:] = [(X, row_lens, out)]
-        return out
-
-    rt._run_batch = timed_run_batch
     try:
         eng = ContinuousEngine(cfg, params, capacity=8, max_len=1024,
                                runtime=rt)
@@ -273,8 +266,7 @@ def main_path(device) -> dict:
             eng.submit(rng.integers(1, cfg.vocab_size, size=L), max_new=24)
         torch.cuda.synchronize()
         step_s, per_step = [], []
-        dispatch.reset_counters()
-        cuda_be.reset_kernel_launches()          # the main path starts here
+        dispatch.reset_counters()                # the main path starts here
         t_run = time.perf_counter()
         while eng.stats()["pending"] or eng.stats()["kv"]["live"]:
             t = time.perf_counter()
@@ -282,16 +274,19 @@ def main_path(device) -> dict:
                 eng.step(temperature=0.8)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
-            per_step.append((c.delta, dict(c.by_backend)))
+            per_step.append((c.delta, c.by_backend, c.by_kernel))
         run_s = time.perf_counter() - t_run
-        launches = cuda_be.kernel_launches()     # ... and ends here
+        launches = dispatch.kernel_launch_counts()   # ... and ends here
+        flush_s = rt.executor.flush_seconds()
     finally:
         rt.close()
-    bad = [(i, s) for i, s in enumerate(per_step) if s != (2, {"cuda": 2})]
+    bad = [(i, s) for i, s in enumerate(per_step) if s != STEP_LAUNCHES]
     if bad:
         raise AssertionError(f"steps not at 2 cuda launches: {bad[:5]}")
-    if min(launches.values()) <= 0:
+    if not all(launches.get(k, 0) > 0 for k in KERNELS):
         raise AssertionError(f"a kernel never launched: {launches}")
+    if len(flush_s) != len(step_s):
+        raise AssertionError(f"{len(flush_s)} flushes in {len(step_s)} steps")
     res = eng.done
     if len(res) != 12 or any(r.tokens.shape != (24,) for r in res):
         raise AssertionError("not every request got its 24 tokens: "
@@ -299,28 +294,64 @@ def main_path(device) -> dict:
     if any(int(t) < 0 or int(t) >= cfg.vocab_size
            for r in res for t in r.tokens):
         raise AssertionError("a sampled token is outside the vocabulary")
-    # the last flush's real logits rows through the plain version
-    X, row_lens, out = flushed[0]
+    # real logits rows of the model (8 prompts, mixed lengths) through
+    # the flush on the kernels and on their plain version
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(8, 64)))
+    logits, _ = transformer.prefill(cfg, params, {"tokens": toks.to(device)},
+                                    max_len=64)
+    X = logits / 0.8
+    row_lens = [cfg.vocab_size - cfg.vocab_size // 16 * i for i in range(8)]
+    got = rt._run_ragged("softmax.cdf", X, {}, row_lens, backend="cuda")
     ref = rt._run_ragged("softmax.cdf", X, {}, row_lens, backend="eager")
-    cdf_err = float((out - ref).abs().max())
+    cdf_err = float((got - ref).abs().max())
     if not (torch.isfinite(X).all() and cdf_err <= 1e-4):
-        raise AssertionError(f"main-path CDF rows differ from the plain "
+        raise AssertionError(f"model logits' CDF rows differ from the plain "
                              f"version by {cdf_err} (atol 1e-4)")
     tokens = sum(int(r.tokens.shape[0]) for r in res)
     ms = lambda xs: 1e3 * statistics.median(xs)
     log(f"main path: {len(res)} requests x 24 tokens in {len(step_s)} steps, "
         f"{run_s:.2f} s; decode {tokens / run_s:.1f} tokens/s; step ms p50 "
         f"{ms(step_s):.2f}; flush ms p50 {ms(flush_s):.3f}; every step 2 "
-        f"cuda launches; kernel launches {launches}; last flush CDF vs "
-        f"plain max abs err {cdf_err:.3e}")
+        f"cuda launches; kernel launches {launches}; model logits' CDF rows "
+        f"vs plain max abs err {cdf_err:.3e}")
     breakdown(eng, rng, cfg)
+    sample_on_card(cfg, params, rng)
     return launches
 
 
+def sample_on_card(cfg, params, rng) -> None:
+    """An engine with no runtime samples on the card: two requests at
+    temperature 0.8 while any ``Tensor.cpu()`` call raises."""
+    import torch
+
+    from repro_torch.serving.engine import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, params, capacity=2, max_len=128)
+    for L in (40, 24):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=L), max_new=4)
+    cpu = torch.Tensor.cpu
+
+    def no_host_copy(self, *a, **k):
+        raise AssertionError("the engine copied a tensor to the host")
+
+    torch.Tensor.cpu = no_host_copy
+    try:
+        res = eng.run(temperature=0.8)
+    finally:
+        torch.Tensor.cpu = cpu
+    if [r.tokens.shape for r in res] != [(4,), (4,)]:
+        raise AssertionError(f"no-runtime engine: {[r.tokens for r in res]}")
+    log("no-runtime engine: 2 requests x 4 tokens sampled on the card, "
+        "no host copy")
+
+
 def breakdown(eng, rng, cfg, steps: int = 3) -> None:
-    """Where a steady decode step's time goes: ``torch.profiler`` over
-    ``steps`` steps of 8 live requests (after the main path, whose
-    counters are already read)."""
+    """Where a steady decode step's time goes, over 8 live requests
+    (after the main path, whose counters are already read): ``steps``
+    steps timed without the profiler, then ``steps`` steps under
+    ``torch.profiler``.  The idle share is the device's busy time per
+    profiled step against the unprofiled step time (the profiler slows
+    the host, not the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,17 +359,27 @@ def breakdown(eng, rng, cfg, steps: int = 3) -> None:
                                          max_batch=64)
     try:
         for _ in range(8):
-            eng.submit(rng.integers(1, cfg.vocab_size, size=64), max_new=8)
+            eng.submit(rng.integers(1, cfg.vocab_size, size=64),
+                       max_new=2 * steps + 4)
         eng.step(temperature=0.8)                # admission (prefills)
         eng.step(temperature=0.8)
         torch.cuda.synchronize()
+        plain_s = []
+        for _ in range(steps):
+            t = time.perf_counter()
+            eng.step(temperature=0.8)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t)
+        step_ms = 1e3 * statistics.median(plain_s)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(steps):
                 eng.step(temperature=0.8)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) / steps
+            prof_ms = (time.perf_counter() - t) / steps * 1e3
+        if eng.stats()["kv"]["live"] != 8:
+            raise AssertionError("the breakdown's steps were not all steady")
         eng.run(temperature=0.8)
     finally:
         rt.close()
@@ -346,14 +387,16 @@ def breakdown(eng, rng, cfg, steps: int = 3) -> None:
     busy = sum(t for _, t, _ in dev)
     top = sorted(dev, key=lambda r: -r[1])[:6]
     ported = {k: t for k, t, _ in dev if k.startswith("ragged_softmax")}
-    log(f"breakdown (torch.profiler, {steps} steady steps, 8 live): step "
-        f"wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-        f"({busy / (wall * 1e3):.1%}), ported kernels {ported}")
+    log(f"breakdown ({steps} steady steps of 8 live requests): step "
+        f"{step_ms:.2f} ms p50 unprofiled ({prof_ms:.2f} ms under the "
+        f"profiler), device busy {busy:.2f} ms/step, idle share "
+        f"{1 - busy / step_ms:.1%}, ported kernels {ported}")
     for k, t, n in top:
         log(f"  {t:8.3f} ms/step  x{n:<5d} {k[:90]}")
     log(json.dumps({"breakdown": {
-        "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
-        "idle_share": 1 - busy / (wall * 1e3), "ported_kernels_ms": ported,
+        "step_ms_p50": step_ms, "profiled_step_ms": prof_ms,
+        "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+        "ported_kernels_ms": ported,
         "top": [{"kernel": k[:120], "ms": t, "calls": n} for k, t, n in top]}}))
 
 
@@ -446,7 +489,7 @@ def timings(device, launches: dict, worst: dict) -> list:
         plain = _device_ms(lambda: run("eager"))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": worst[label], "ms": ms,
                      "plain_ms": plain, "bound_ms": bound,
                      "bound_by": "bytes", "library_ms": None,

@@ -25,19 +25,19 @@ the strides are run-time arguments, so one build serves every bucket
 (the dispatch keys keep the bucket anyway, so driver-build and launch
 counts match the JAX package's).  The driver allocates the outputs with
 ``torch.empty``, raises on a non-CUDA operand and on a non-zero CUDA
-error code, and counts one launch per successful kernel launch in
-`KERNEL_LAUNCHES`.  Nothing here falls back to another backend.
+error code, and counts one launch per successful kernel launch with
+`dispatch.record_kernel_launch`.  Nothing here falls back to another
+backend.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Callable
 
 import torch
 
-from repro_torch.core import snippets
+from repro_torch.core import dispatch, snippets
 from repro_torch.core.backends.base import (Backend, bind_row_lens,
                                             operand_device)
 from repro_torch.core.platform import bind_row_operand, canonical_dtype
@@ -52,11 +52,6 @@ _ELTWISE_TMPL = KernelTemplate.from_file("eltwise_rows", "eltwise_rows.cu.j2")
 THREADS = {"row_reduction": 1024, "rows_elementwise": 256,
            "rows_elementwise_scan": 1024}
 
-#: launches of each kernel, counted by its driver after a launch that
-#: returned no CUDA error (the chip check zeroes and reads these)
-KERNEL_LAUNCHES = {"row_reduction": 0, "rows_elementwise": 0}
-_LAUNCH_LOCK = threading.Lock()
-
 #: dtype -> (CUDA C type, ctypes scalar type) for the types this slice
 #: binds; others raise at render time
 _CTYPES = {
@@ -66,22 +61,6 @@ _CTYPES = {
     "bool": ("bool", ctypes.c_bool),
 }
 _PYTYPES = {"float32": float, "int32": int, "uint32": int, "bool": bool}
-
-
-def reset_kernel_launches() -> None:
-    with _LAUNCH_LOCK:
-        for k in KERNEL_LAUNCHES:
-            KERNEL_LAUNCHES[k] = 0
-
-
-def kernel_launches() -> dict:
-    with _LAUNCH_LOCK:
-        return dict(KERNEL_LAUNCHES)
-
-
-def _count_launch(kernel: str) -> None:
-    with _LAUNCH_LOCK:
-        KERNEL_LAUNCHES[kernel] += 1
 
 
 def _ctype(dt: str) -> str:
@@ -286,7 +265,7 @@ class CudaBackend(Backend):
                                              ragged)
             outs = [torch.empty(b, dtype=dt, device=device) for dt in dtypes]
             self._check(launch(*cargs, *[o.data_ptr() for o in outs]), kir)
-            _count_launch("row_reduction")
+            dispatch.record_kernel_launch("row_reduction")
             del keep
             return tuple(outs) if multi else outs[0]
 
@@ -306,12 +285,11 @@ class CudaBackend(Backend):
             for o in outs:
                 cargs += [o.data_ptr(), o.stride(0)]
             self._check(launch(*cargs), kir)
-            _count_launch("rows_elementwise")
+            dispatch.record_kernel_launch("rows_elementwise")
             del keep
             return outs
 
         return driver
 
 
-__all__ = ["CudaBackend", "KERNEL_LAUNCHES", "kernel_launches",
-           "reset_kernel_launches", "THREADS"]
+__all__ = ["CudaBackend", "THREADS"]

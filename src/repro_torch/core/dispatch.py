@@ -11,7 +11,10 @@ bucketing math and counters unchanged:
   * drivers live in one bounded, shared `LRUCache` keyed per backend;
   * the compile and launch counters count driver builds and successful
     driver calls, *tagged per backend*, and `count_launches` /
-    `count_compiles` read them around a block.
+    `count_compiles` read them around a block;
+  * beside them, each hand-written kernel's wrapper counts its own
+    launches by kernel name (`record_kernel_launch`), so one
+    `reset_counters` and one `count_launches` cover both.
 
 The CUDA sources do not depend on the bucket (they take ``b``/``n`` at
 run time), but the keys keep it, so driver-build and launch counts match
@@ -36,6 +39,7 @@ _counter_lock = threading.Lock()
 _UNTAGGED = "untagged"  # counter tag when a caller does not name a backend
 _compile_counts: dict[str, int] = {}
 _launch_counts: dict[str, int] = {}
+_kernel_counts: dict[str, int] = {}
 
 
 def run_with_retries(fn: Callable[[], Any], *, site: str,
@@ -115,6 +119,12 @@ def record_launch(backend: str | None = None) -> None:
     _record(_launch_counts, backend or _UNTAGGED)
 
 
+def record_kernel_launch(kernel: str) -> None:
+    """Count one launch of a hand-written kernel; its wrapper calls this
+    after a launch that returned no error, and nowhere else."""
+    _record(_kernel_counts, kernel)
+
+
 def compile_counts() -> dict[str, int]:
     with _counter_lock:
         return dict(_compile_counts)
@@ -125,34 +135,47 @@ def launch_counts() -> dict[str, int]:
         return dict(_launch_counts)
 
 
+def kernel_launch_counts() -> dict[str, int]:
+    with _counter_lock:
+        return dict(_kernel_counts)
+
+
+def _deltas(start: dict, end: dict) -> dict:
+    return {k: d for k in end if (d := end[k] - start.get(k, 0)) > 0}
+
+
 class _DeltaCounter:
     """Context manager over one counter map: ``delta`` after exit is the
     count inside the block, ``by_backend`` the nonzero per-backend
     deltas — so a test can assert both the schedule length and *which*
-    backend executed it."""
+    backend executed it.  ``by_kernel`` holds the nonzero deltas of the
+    per-kernel map, when one is given."""
 
-    def __init__(self, snapshot: Callable[[], dict]):
+    def __init__(self, snapshot: Callable[[], dict],
+                 kernels: "Callable[[], dict] | None" = None):
         self._snapshot = snapshot
+        self._kernels = kernels or dict
 
     def __enter__(self):
         self._start = self._snapshot()
+        self._kstart = self._kernels()
         self.delta = 0
         self.by_backend: dict[str, int] = {}
+        self.by_kernel: dict[str, int] = {}
         return self
 
     def __exit__(self, *exc):
-        end = self._snapshot()
-        self.by_backend = {
-            k: d for k in end
-            if (d := end[k] - self._start.get(k, 0)) > 0}
+        self.by_backend = _deltas(self._start, self._snapshot())
+        self.by_kernel = _deltas(self._kstart, self._kernels())
         self.delta = sum(self.by_backend.values())
         return False
 
 
 def count_launches() -> _DeltaCounter:
     """``with dispatch.count_launches() as c: ...; c.delta`` — e.g. one
-    ragged sampler flush is a reduction wave plus one epilogue: 2."""
-    return _DeltaCounter(launch_counts)
+    ragged sampler flush is a reduction wave plus one epilogue: 2
+    (``c.by_kernel`` names the hand-written kernels that ran)."""
+    return _DeltaCounter(launch_counts, kernel_launch_counts)
 
 
 def count_compiles() -> _DeltaCounter:
@@ -164,10 +187,12 @@ def reset_counters() -> None:
     with _counter_lock:
         _compile_counts.clear()
         _launch_counts.clear()
+        _kernel_counts.clear()
 
 
 def stats() -> dict:
     s = _driver_cache.stats()
     s["compiles_by_backend"] = compile_counts()
     s["launches_by_backend"] = launch_counts()
+    s["launches_by_kernel"] = kernel_launch_counts()
     return s

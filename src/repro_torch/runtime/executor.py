@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Any, Callable
 
 import torch
@@ -37,6 +38,9 @@ from repro_torch.core import dispatch
 #: attempts per row after a failed flush (the JAX package reads
 #: REPRO_RETRY_MAX through its fault harness; the port fixes its default)
 ROW_ATTEMPTS = 6
+
+#: flush durations kept for `CoalescingExecutor.flush_seconds`
+FLUSH_HISTORY = 1024
 
 
 class RuntimeFuture:
@@ -142,6 +146,7 @@ class CoalescingExecutor:
         self._window_flushes = 0      # flushed below max_batch (window/close)
         self._full_flushes = 0        # flushed at max_batch
         self._drained_rows = 0        # rows pulled into a due batch at flush
+        self._flush_s: deque = deque(maxlen=FLUSH_HISTORY)
 
     # -- submission ------------------------------------------------------
     def submit(self, family: str, row, *, shared: "dict | None" = None,
@@ -256,6 +261,7 @@ class CoalescingExecutor:
                 fut._set_error(e)
 
     def _flush_batch(self, batch: _Batch) -> None:
+        t0 = time.perf_counter()
         try:
             lens = None
             if batch.ragged:
@@ -285,6 +291,8 @@ class CoalescingExecutor:
             self._retry_rows(batch, e)
             return
         self._scatter(batch, out, lens)
+        with self._cv:
+            self._flush_s.append(time.perf_counter() - t0)
 
     def _deadline_error(self, batch: _Batch, i: int) -> TimeoutError:
         elapsed = time.monotonic() - batch.submits[i]
@@ -384,6 +392,14 @@ class CoalescingExecutor:
         for b in leftovers:
             for fut in b.futures:
                 fut._set_error(RuntimeError("executor closed"))
+
+    def flush_seconds(self) -> list:
+        """Host seconds of each of the last `FLUSH_HISTORY` successful
+        flushes, from stacking the rows to resolving their futures.  A
+        flush whose requests have post steps (the sampler) copies its
+        output to the host, so its time includes its device work."""
+        with self._cv:
+            return list(self._flush_s)
 
     def stats(self) -> dict:
         """Coalesce-factor counters: K requests per flush at 2 launches

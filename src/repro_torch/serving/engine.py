@@ -206,24 +206,30 @@ class ContinuousEngine:
     def _sample_rows(self, rows: dict, temperature: float) -> dict:
         """One token per live row — ONE ragged runtime flush when a
         runtime is attached and temperature > 0 (2 generated launches
-        for the whole step), host argmax for greedy decoding."""
+        for the whole step), argmax for greedy decoding.  Without a
+        runtime the draw stays on the rows' device, as the JAX
+        package's ``jax.random.categorical`` does."""
         if not rows:
             return {}
         if temperature == 0.0:
             return {s: int(torch.argmax(r)) for s, r in rows.items()}
-        # one generator per row, seeded from the engine's (the JAX
-        # package splits one key per row)
-        subgens = {s: torch.Generator().manual_seed(int(torch.randint(
-            2 ** 62, (), generator=self._gen))) for s in sorted(rows)}
+        order = sorted(rows)
+        seeds = [int(torch.randint(2 ** 62, (), generator=self._gen))
+                 for _ in order]
         if self.runtime is not None:
-            futs = {s: self.runtime.submit_sample(rows[s], subgens[s],
-                                                  temperature)
-                    for s in sorted(rows)}
+            # one host generator per row, seeded from the engine's (the
+            # JAX package splits one key per row): the runtime's
+            # inverse-CDF draw runs on the host
+            futs = {s: self.runtime.submit_sample(
+                rows[s], torch.Generator().manual_seed(seed), temperature)
+                for s, seed in zip(order, seeds)}
             self.runtime.flush()
             return {s: int(f.result(timeout=60.0)) for s, f in futs.items()}
-        return {s: int(torch.multinomial(
-            torch.softmax(rows[s].float().cpu() / temperature, dim=-1), 1,
-            generator=subgens[s])) for s in sorted(rows)}
+        toks = torch.cat([torch.multinomial(
+            torch.softmax(rows[s].float() / temperature, dim=-1), 1,
+            generator=torch.Generator(rows[s].device).manual_seed(seed))
+            for s, seed in zip(order, seeds)])
+        return dict(zip(order, toks.tolist()))
 
     @torch.no_grad()
     def step(self, temperature: float = 0.0) -> int:

@@ -72,6 +72,22 @@ def test_batch_and_pair_buckets_match_jax():
                     jdispatch.rc_bucket(b, n, **kw)
 
 
+def test_kernel_launch_counts_share_the_dispatch_counters():
+    """Per-kernel counts sit beside the per-backend ones: one
+    `count_launches` reads both and one `reset_counters` clears both."""
+    with dispatch.count_launches() as c:
+        dispatch.record_launch("cuda")
+        dispatch.record_kernel_launch("row_reduction")
+        dispatch.record_launch("cuda")
+        dispatch.record_kernel_launch("rows_elementwise")
+    assert (c.delta, c.by_backend) == (2, {"cuda": 2})
+    assert c.by_kernel == {"row_reduction": 1, "rows_elementwise": 1}
+    assert dispatch.stats()["launches_by_kernel"]["row_reduction"] >= 1
+    dispatch.reset_counters()
+    assert dispatch.kernel_launch_counts() == {}
+    assert dispatch.launch_counts() == {}
+
+
 # ----------------------------------------------------------------- dtypes
 @pytest.mark.parametrize("dt", [np.float64, np.float32, np.int64, np.int32,
                                 np.uint32, np.bool_, "float64", "int64"])

@@ -162,6 +162,50 @@ def test_runtime_step_is_two_launches(model):
         rt.close()
 
 
+def _sample_without_runtime(cfg, params, device, monkeypatch):
+    """Serve 2 requests at temperature 0.7 with no runtime attached while
+    any ``Tensor.cpu()`` call raises: the draw must stay on ``device``."""
+    drawn_on = []
+    multinomial = torch.multinomial
+
+    def spy(probs, num, *, generator):
+        drawn_on.append((probs.device.type, generator.device.type))
+        return multinomial(probs, num, generator=generator)
+
+    def no_host_copy(self, *a, **k):
+        raise AssertionError("the sampler copied logits to the host")
+
+    rng = np.random.default_rng(11)
+    eng = ContinuousEngine(cfg, params, capacity=2, max_len=32, device=device)
+    for L in (4, 6):
+        eng.submit(_prompt(rng, cfg, L), max_new=3)
+    monkeypatch.setattr(torch, "multinomial", spy)
+    monkeypatch.setattr(torch.Tensor, "cpu", no_host_copy)
+    eng.run(temperature=0.7)
+    monkeypatch.undo()
+    assert [r.tokens.shape for r in eng.done] == [(3,), (3,)]
+    assert all(0 <= t < cfg.vocab_size for r in eng.done for t in r.tokens)
+    assert drawn_on and set(drawn_on) == {(device, device)}
+
+
+def test_sampling_without_runtime_stays_on_the_device(model, monkeypatch):
+    _, _, cfg, params = model
+    _sample_without_runtime(cfg, params, "cpu", monkeypatch)
+
+
+@pytest.mark.cuda
+def test_card_engine_without_runtime_samples_on_the_card(model, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, cfg, params = model
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
+                for k, v in tree.items()}
+
+    _sample_without_runtime(cfg, to_card(params), "cuda", monkeypatch)
+
+
 def test_engine_defaults_to_the_card(model):
     _, _, cfg, params = model
     if torch.cuda.is_available():

@@ -61,6 +61,8 @@ def test_sampler_rows_flush_once_in_two_launches(rt):
     assert c.delta == 2 and c.by_backend == {"eager": 2}
     ex = rt.executor.stats()
     assert ex["flushes"] == 1 and ex["requests"] == len(rows)
+    (flush_s,) = rt.executor.flush_seconds()
+    assert flush_s > 0
     for t, L in zip(toks, LENS):
         assert 0 <= t < L
 
