@@ -9,14 +9,18 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch,
    CUDA, ``nvcc --version``, jinja2;
-2. build: renders every CUDA kernel instance of the serving path and the
-   ragged runtime families from the templates under
+2. build: renders every CUDA kernel instance — of the serving path, the
+   ragged runtime families and the RTCG library (flat elementwise, flat
+   and column reductions, scans) — from the templates under
    ``src/repro_torch/csrc`` and compiles them with ``nvcc`` for
    ``sm_90a``, one ``nvcc`` per source, all started together;
 3. every instance against its plain version (the ``eager`` backend) on
-   the same card tensors, K in {1, 3, 8, 64} x N in {1, 1023, 92544,
-   131073} with mixed row lengths;
-4. the main path: ``internlm2-1.8b`` at full width in bf16 (random
+   the same card tensors: the rows kernels at K in {1, 3, 8, 64} x N in
+   {1, 1023, 92544, 131073} with mixed row lengths, and row lengths past
+   the width; the flat kernels at n up to 2**27, every reducer, the
+   column form at (3, 1023), (1023, 3) and (8192, 2048), the four scans
+   inclusive and exclusive at n up to 2**27;
+4. the serving path: ``internlm2-1.8b`` at full width in bf16 (random
    weights from a seed) served by ``ContinuousEngine(capacity=8,
    max_len=1024)`` with ``ServingRuntime(backend="cuda")``: 12 prompts
    of 32-200 tokens, 24 new tokens each at temperature 0.8; every step
@@ -25,10 +29,19 @@ Phases (any failure exits non-zero and prints no result line):
    plain version; then 3 steady steps of 8 live requests are timed, and
    3 more under ``torch.profiler`` say where a step's time goes; an
    engine without a runtime samples on the card, with no host copy;
-5. times at the main-path shape (K=8, V=92544): each kernel's device
-   time (``torch.profiler``) and its wrapper's time per call (CUDA
-   events), its plain version, its bound, and library yardsticks the
-   port never calls.
+5. the library path at sizes users run (the quickstart's sections 1-3c
+   on the card): lin_comb, map-reduce, dot, two accumulators, variance
+   and a prefix scan over 2**27 elements, a 1-D softmax over 2**24, a
+   stable row softmax over (64, 92544), a batched rmsnorm over (4096,
+   2048), a column softmax over (8192, 2048), and ``ServingRuntime``'s
+   dense ``softmax``/``rmsnorm``/``sample`` plus 64 concurrent
+   ``submit_softmax`` rows in one flush; each result against the plain
+   version and each launch count against the JAX package's (the parity
+   tests pin them), every launch ``cuda``;
+6. times: each kernel's device time (``torch.profiler``) and its
+   wrapper's time per call (CUDA events), its plain version, its bound,
+   and a library yardstick the port never calls — the rows kernels at
+   the serving shape (K=8, V=92544), the library kernels at 2**27.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +62,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 MAIN_K, MAIN_V = 8, 92544     # sampler flush at the main path: 8 live rows
+LIB_N = 1 << 27               # the library path's vectors: 512 MiB of f32
 SEED = 0
 
 
@@ -97,22 +111,90 @@ def instances():
     ]
 
 
-def build_all() -> None:
+def library_kernels() -> dict:
+    """One instance of every library kernel form, by label: the flat
+    elementwise pass (float32 with scalars; int32 with the global index),
+    the flat reduction with every reducer, single and multi-accumulator,
+    the column reduction, and the four scans, inclusive and exclusive."""
+    from repro_torch.core import (ElementwiseKernel, ExclusiveScanKernel,
+                                  InclusiveScanKernel, ReductionKernel)
+
+    f32 = "float32"
+    ks = {
+        "axpy": ElementwiseKernel("float a, float *x, float *y, float *z",
+                                  "z[i] = x[i] + a*y[i]", name="axpy"),
+        "iota_i32": ElementwiseKernel("int *o, int *v", "o[i] = v[i] * 3 + i",
+                                      name="iota_i32"),
+        "stats3": ReductionKernel(
+            [f32] * 3, ["3.4e38", "-3.4e38", "0"],
+            ["fminf(a,b)", "fmaxf(a,b)", "a+b"], ["x[i]"] * 3, "float *x",
+            name="lib_stats3"),
+        "isum_wrap": ReductionKernel("int32", "0", "a+b", "x[i] * 7",
+                                     "int *x", name="lib_isum"),
+        "col_wave": ReductionKernel([f32, f32], ["-3.4e38", "0"],
+                                    ["fmaxf(a, b)", "a + b"],
+                                    ["x[i]", "expf(x[i] - _acc0)"],
+                                    "float *x", axis=0, name="lib_col_wave"),
+        "col_sum": ReductionKernel(f32, "0", "a+b", "x[i]", "float *x",
+                                   axis=0, name="lib_col_sum"),
+    }
+    for label, neutral, rexpr, mexpr in REDUCERS:
+        ks[label] = ReductionKernel(f32, neutral, rexpr, mexpr,
+                                    "float *x, float *y", name=f"lib_{label}")
+    for tag, op, neutral in SCAN_OPS:
+        ks[f"scan_{tag}.incl"] = InclusiveScanKernel(f32, op,
+                                                     name=f"scan_{tag}")
+        ks[f"scan_{tag}.excl"] = ExclusiveScanKernel(
+            f32, op, neutral, name=f"scan_{tag}_excl")
+    return ks
+
+
+#: flat reducers: (label, neutral, reduce_expr, map_expr over x and y)
+REDUCERS = [("sum", "0", "a+b", "x[i]"), ("dot", "0", "b+a", "x[i]*y[i]"),
+            ("prod", "1", "a*b", "x[i]"),
+            ("fmaxf", "-3.4e38", "fmaxf(a,b)", "x[i] + y[i]"),
+            ("max", "-3.4e38", "max(a,b)", "x[i]"),
+            ("fminf", "3.4e38", "fminf(a,b)", "fabsf(x[i])"),
+            ("min", "3.4e38", "min(a,b)", "y[i]")]
+SCAN_OPS = [("sum", "a+b", "0"), ("prod", "a*b", "1"),
+            ("max", "fmaxf(a,b)", "-3e38"), ("min", "fminf(a,b)", "3e38")]
+
+
+def _source(k, ragged: bool = False) -> str:
+    """The CUDA source of one kernel instance (what its driver builds)."""
+    from repro_torch.core import ReductionKernel, ScanKernel
+
+    if isinstance(k, ScanKernel):
+        return k.render(backend="cuda")
+    if (isinstance(k, ReductionKernel) and k.axis is None) or \
+            getattr(k, "layout", None) == "flat":
+        return k.render(8, backend="cuda")
+    return k.render(1, 128, backend="cuda", ragged=ragged)
+
+
+def build(jobs, what: str) -> None:
+    """Compile (label, name, source) jobs: one nvcc per source, all
+    started together."""
     from repro_torch.core.rtcg import CudaSourceModule
 
-    jobs = [(label, k.name, k.render(1, 128, backend="cuda", ragged=ragged))
-            for label, k, ragged in instances()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as ex:
         mods = list(ex.map(lambda j: CudaSourceModule.load(j[2], name=j[1]),
                            jobs))
-    log(f"build: {len(jobs)} instances, {len({m.path for m in mods})} "
+    log(f"build {what}: {len(jobs)} instances, {len({m.path for m in mods})} "
         f"sources, {time.perf_counter() - t0:.2f} s wall")
     for (label, _, _), m in zip(jobs, mods):
         usage = [ln.split("ptxas info    : ")[-1] for ln in
                  m.build_log.splitlines() if "Used" in ln]
         log(f"  {label}: {m.path.relative_to(ROOT) if m.path.is_relative_to(ROOT) else m.path}"
             f" compiled={m.compiled} {' '.join(usage)}")
+
+
+def build_all(lib: dict) -> None:
+    jobs = [(label, k.name, _source(k, ragged))
+            for label, k, ragged in instances()]
+    jobs += [(label, k.name, _source(k)) for label, k in lib.items()]
+    build(jobs, "kernel instances")
 
 
 # ------------------------------------------------------------ phase 3
@@ -172,33 +254,200 @@ TOL = {
 def compare_all(device) -> dict:
     import torch
 
+    from repro_torch.core.dispatch import bucket_cols
+
     gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = [(K, N) + _inputs(K, N, gen, device)
+             for K in (1, 3, 8, 64) for N in (1, 1023, 92544, 131073)]
+    for N in (1, 1023, 92544):
+        # row lengths past the width: the columns up to the row's bucket
+        # count with zero operands, as in the JAX package's padded blocks
+        lens = torch.tensor([N + 1, bucket_cols(N), bucket_cols(N) + 3, 1],
+                            dtype=torch.int32, device=device)
+        cases.append((4, N, torch.randn((4, N), generator=gen,
+                                        device=device) * 3.0, lens))
     worst: dict = {}
-    for K in (1, 3, 8, 64):
-        for N in (1, 1023, 92544, 131073):
-            X, lens = _inputs(K, N, gen, device)
-            for label, k, _ in instances():
-                args = None if "wave" in label else _epilogue_args(
-                    label, X, lens, device)
-                got = _call(label, k, X, lens, "cuda", args)
-                ref = _call(label, k, X, lens, "eager", args)
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                torch.cuda.synchronize()
-                for j, (g, r) in enumerate(zip(got, ref)):
-                    rtol, atol = TOL[label.split(".")[0]][j]
-                    err = float((g - r).abs().max())
-                    bound = atol + rtol * r.abs()
-                    if not bool(((g - r).abs() <= bound).all()):
-                        raise AssertionError(
-                            f"{label} output {j} at K={K} N={N}: max abs "
-                            f"err {err} beyond rtol={rtol} atol={atol}")
-                    key = (label, j)
-                    worst[key] = max(worst.get(key, 0.0), err)
+    for K, N, X, lens in cases:
+        for label, k, _ in instances():
+            args = None if "wave" in label else _epilogue_args(
+                label, X, lens, device)
+            got = _call(label, k, X, lens, "cuda", args)
+            ref = _call(label, k, X, lens, "eager", args)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            for j, (g, r) in enumerate(zip(got, ref)):
+                rtol, atol = TOL[label.split(".")[0]][j]
+                err = float((g - r).abs().max())
+                bound = atol + rtol * r.abs()
+                if not bool(((g - r).abs() <= bound).all()):
+                    raise AssertionError(
+                        f"{label} output {j} at K={K} N={N}: max abs "
+                        f"err {err} beyond rtol={rtol} atol={atol}")
+                key = (label, j)
+                worst[key] = max(worst.get(key, 0.0), err)
     for (label, j), err in sorted(worst.items()):
         log(f"  {label} out{j}: max abs err {err:.3e} "
             f"(rtol={TOL[label.split('.')[0]][j][0]}, "
             f"atol={TOL[label.split('.')[0]][j][1]})")
+    return worst
+
+
+def _close(what: str, got, ref, kind: str, scale=None, rtol=None) -> float:
+    """Hold a kernel's result against its plain version; the max abs
+    error.  ``pointwise``: rtol 1e-6, atol 1e-6 (the same float32
+    arithmetic, fused multiply-adds aside); ``exact``: equal (max/min,
+    integers, wraparound included); ``sum``: |d| <= 1e-5 * scale + 1e-6
+    with ``scale`` the sum of the absolute terms (float32 sums in another
+    order); ``prod``: rtol (float32 products in another order)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"plain {ref.dtype} {tuple(ref.shape)}")
+    d = (got.double() - ref.double()).abs()
+    bound = {"exact": lambda: 0.0,
+             "pointwise": lambda: 1e-6 + 1e-6 * ref.double().abs(),
+             "sum": lambda: 1e-5 * scale + 1e-6,
+             "prod": lambda: rtol * ref.double().abs()}[kind]()
+    if not bool((d <= bound).all()):
+        raise AssertionError(f"{what}: max abs err {float(d.max())} beyond "
+                             f"the {kind} tolerance")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _powers_of_two(n: int, gen, device):
+    """n factors whose every partial product is exact in float32: ones,
+    with 100 twos, 100 halves and three minus ones at random places (the
+    running exponent stays within +-100).  A float32 product of 2**27
+    factors near 1 depends on the order of its multiplies by whole per
+    cent, so no tolerance would tell a right kernel from a wrong one."""
+    import torch
+
+    x = torch.ones(n, device=device)
+    at = torch.randint(0, n, (203,), generator=gen, device=device)
+    x[at[:100]], x[at[100:200]], x[at[200:]] = 2.0, 0.5, -1.0
+    return x
+
+
+FLAT_NS = (1, 127, 128, 129, 4097, LIB_N - 3, LIB_N)
+SCAN_NS = (1, 4095, 4096, 4097, LIB_N)
+
+
+def compare_library(device, lib: dict) -> dict:
+    """Every library kernel instance against its plain version on the
+    same card tensors; the worst abs error per kernel."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    worst: dict = {}
+
+    def run(kernel_row, what, k, args, kind, scale=None, rtol=None):
+        got = k(*args, backend="cuda")
+        ref = k(*args, backend="eager")
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        kinds = kind if isinstance(kind, tuple) else (kind,) * len(got)
+        scales = scale if isinstance(scale, tuple) else (scale,) * len(got)
+        torch.cuda.synchronize()
+        for j, (g, r, kd, sc) in enumerate(zip(got, ref, kinds, scales)):
+            err = _close(f"{what} out{j}", g, r, kd, sc, rtol)
+            worst[kernel_row] = max(worst.get(kernel_row, 0.0), err)
+
+    def ints(*shape, lo=-1000, hi=1000):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    for n in FLAT_NS:
+        x = torch.randn(n, generator=gen, device=device)
+        y = torch.randn(n, generator=gen, device=device)
+        run("flat_elementwise", f"axpy n={n}", lib["axpy"], (2.5, x, y, x),
+            "pointwise")
+        v = ints(n)
+        run("flat_elementwise", f"iota_i32 n={n}", lib["iota_i32"], (v, v),
+            "exact")
+    for n in (1, 4097, LIB_N):
+        x = torch.randn(n, generator=gen, device=device)
+        y = torch.randn(n, generator=gen, device=device)
+        near1 = 0.999 + 0.002 * torch.rand(n, generator=gen, device=device) \
+            if n <= 4097 else _powers_of_two(n, gen, device)
+        xd, yd = x.double(), y.double()
+        for label, _, rexpr, _ in REDUCERS:
+            args = (near1, y) if label == "prod" else (x, y)
+            if label == "sum":
+                run("flat_reduction", f"sum n={n}", lib[label], args, "sum",
+                    float(xd.abs().sum()))
+            elif label == "dot":
+                run("flat_reduction", f"dot n={n}", lib[label], args, "sum",
+                    float((xd * yd).abs().sum()))
+            elif label == "prod":   # rtol 1e-4: float32 products, 4097 terms
+                run("flat_reduction", f"prod n={n}", lib[label], args,
+                    "prod" if n <= 4097 else "exact", rtol=1e-4)
+            else:
+                run("flat_reduction", f"{label} n={n}", lib[label], args,
+                    "exact")
+        # integer-valued float32 terms in [-8, 8]: every partial sum the
+        # kernel or its plain version forms is an integer far below
+        # 2**24, so the result is exact in any order, and one partial or
+        # block dropped or read twice must show at 2**27 as well
+        xi, yi = ints(n, lo=-8, hi=9).float(), ints(n, lo=-8, hi=9).float()
+        run("flat_reduction", f"sum_exact n={n}", lib["sum"], (xi, yi),
+            "exact")
+        run("flat_reduction", f"dot_exact n={n}", lib["dot"], (xi, yi),
+            "exact")
+        run("flat_reduction", f"stats3 n={n}", lib["stats3"], (x,),
+            ("exact", "exact", "sum"), (None, None, float(xd.abs().sum())))
+        if n > 1:   # int32 sums that wrap around 2**32
+            run("flat_reduction", f"isum_wrap n={n}", lib["isum_wrap"],
+                (ints(n, lo=-2**31, hi=2**31 - 1),), "exact")
+    # the sum on two streams at once: each stream has its own last-block
+    # ticket, so no grid folds the other's partials (exact terms again)
+    xs = [ints(1 << 24, lo=-8, hi=9).float() for _ in range(2)]
+    want = [lib["sum"](x, x, backend="eager") for x in xs]
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(16):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got.append((j, lib["sum"](xs[j], xs[j], backend="cuda")))
+    torch.cuda.synchronize()
+    for j, g in got:
+        err = _close(f"sum on stream {j}", g, want[j], "exact")
+        worst["flat_reduction"] = max(worst.get("flat_reduction", 0.0), err)
+    for b, n in ((3, 1023), (1023, 3), (8192, 2048)):
+        X = torch.randn((b, n), generator=gen, device=device) * 3.0
+        ref_sum = lib["col_wave"](X, backend="eager")[1].double()
+        run("row_reduction.axis0", f"col_wave {b}x{n}", lib["col_wave"], (X,),
+            ("exact", "sum"), (None, ref_sum))
+        run("row_reduction.axis0", f"col_sum {b}x{n}", lib["col_sum"], (X,),
+            "sum", X.double().abs().sum(0))
+        run("row_reduction.axis0", f"col_sum_exact {b}x{n}", lib["col_sum"],
+            (ints(b, n, lo=-8, hi=9).float(),), "exact")
+    for label, k in lib.items():
+        if not label.startswith("scan_"):
+            continue
+        for n in SCAN_NS:
+            if "prod" in label:   # rtol 1e-4 on [0.9, 1.1]; exact at 2**27
+                if n <= 4097:
+                    x = 0.9 + 0.2 * torch.rand(n, generator=gen, device=device)
+                    run("scan", f"{label} n={n}", k, (x,), "prod", rtol=1e-4)
+                else:
+                    run("scan", f"{label} n={n}", k,
+                        (_powers_of_two(n, gen, device),), "exact")
+            elif "sum" in label:
+                x = torch.randn(n, generator=gen, device=device)
+                terms = torch.cumsum(x.double().abs(), 0)
+                if label.endswith("excl"):
+                    terms = torch.cat([terms.new_zeros(1), terms[:-1]])
+                run("scan", f"{label} n={n}", k, (x,), "sum", terms)
+                # exact on integer-valued terms (see the sums above): a
+                # late tile's wrong carry must show
+                run("scan", f"{label}_exact n={n}", k,
+                    (ints(n, lo=-8, hi=9).float(),), "exact")
+            else:
+                x = torch.randn(n, generator=gen, device=device)
+                run("scan", f"{label} n={n}", k, (x,), "exact")
+    for row, err in sorted(worst.items()):
+        log(f"  {row}: max abs err {err:.3e}")
     return worst
 
 
@@ -401,6 +650,164 @@ def breakdown(eng, rng, cfg, steps: int = 3) -> None:
 
 
 # ------------------------------------------------------------ phase 5
+LIB_KERNELS = ("flat_elementwise", "flat_reduction", "scan_pass1",
+               "scan_pass2", "row_reduction", "rows_elementwise")
+
+
+def library_path(device) -> dict:
+    """The RTCG library path at sizes users run (the quickstart's
+    sections 1-3c on the card), through the entry points a user calls:
+    each step's result against the plain version on the same tensors,
+    and its launch count against the JAX package's for the same
+    expression (the parity tests in tests/test_torch_planner.py and
+    tests/test_torch_library.py pin them equal), every launch ``cuda``.
+    The per-kernel counts are set to 0 just before the steps and read
+    just after; the plain versions run after that."""
+    import torch
+
+    import repro_torch.core.array as ga
+    from repro_torch.core import (ElementwiseKernel, InclusiveScanKernel,
+                                  dispatch)
+    from repro_torch.runtime import ServingRuntime
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x, y, v = rnd(LIB_N), rnd(LIB_N), rnd(1 << 24, scale=4.0)
+    logits, h, cols = rnd(64, MAIN_V, scale=3.0), rnd(4096, 2048), \
+        rnd(8192, 2048, scale=3.0)
+    w = torch.linspace(0.5, 1.5, 2048, device=device)
+    X, Y, V = ga.to_gpu(x), ga.to_gpu(y), ga.to_gpu(v)
+    L, H, W, C = (ga.to_gpu(t) for t in (logits, h, w, cols))
+    axpy = ElementwiseKernel("float a, float *x, float *y, float *z",
+                             "z[i] = x[i] + a*y[i]", name="axpy")
+    cumsum = InclusiveScanKernel("float32", "a+b", name="scan_sum")
+    rt = ServingRuntime(backend="cuda", window=1.0, max_batch=64)
+    plain_rt = ServingRuntime(backend="eager", device=device)
+    exprs = {
+        "(2*X + 3*Y).sum()": (2 * X + 3 * Y).sum(),
+        "X.dot(Y)": X.dot(Y),
+        "variance ((v - v.mean())**2).mean()": ((V - V.mean()) ** 2).mean(),
+        "softmax(v), 1-D": ga.softmax(V),
+        "stable row softmax (64, 92544)": ga.softmax(L, stable=True),
+        "rmsnorm (4096, 2048)": H / (((H * H).mean(axis=-1) + 1e-6).sqrt())
+        * W,
+        "softmax(axis=0) (8192, 2048)": ga.softmax(C, stable=True, axis=0),
+    }
+    # build every generated kernel of the path first, in parallel
+    scheds = [ga.plan_many([e]) for e in exprs.values()] + \
+        [ga.plan_many([X.sum(), (X * X).sum()])]
+    build([(f"library {p.kernel().name}", p.kernel().name,
+            _source(p.kernel()))
+           for sc in scheds for p in sc.steps + sc.epilogues],
+          "library path")
+
+    def submit_rows(runtime):
+        with ThreadPoolExecutor(8) as ex:
+            futs = list(ex.map(runtime.submit_softmax, list(logits)))
+        runtime.flush()
+        return torch.stack([f.result(timeout=120) for f in futs])
+
+    # (label, user call on be=None/the card, plain call, JAX launches,
+    #  check kind, scale of the absolute terms for sums)
+    steps = [
+        ("axpy z = x + a*y, 2**27", lambda be: axpy(2.5, x, y, x, backend=be),
+         1, "pointwise", None),
+        ("(2*X + 3*Y).sum(), 2**27", "(2*X + 3*Y).sum()", 1, "sum",
+         lambda: (2 * x.double() + 3 * y.double()).abs().sum()),
+        ("X.dot(Y), 2**27", "X.dot(Y)", 1, "sum",
+         lambda: (x.double() * y.double()).abs().sum()),
+        ("(sum, sum of squares), 2**27",
+         lambda be: torch.stack(ga.plan_many([X.sum(), (X * X).sum()],
+                                             backend=be).launch()),
+         1, "sum", lambda: torch.stack([x.double().abs().sum(),
+                                        (x.double() ** 2).sum()])),
+        ("variance, 2**24", "variance ((v - v.mean())**2).mean()", 2, "sum",
+         lambda: ((v.double() - v.double().mean()) ** 2).mean()),
+        ("softmax(v), 1-D 2**24", "softmax(v), 1-D", 2, "normalized", None),
+        ("stable row softmax (64, 92544)", "stable row softmax (64, 92544)",
+         2, "normalized", None),
+        ("rmsnorm (4096, 2048)", "rmsnorm (4096, 2048)", 2, "normalized",
+         None),
+        ("softmax(axis=0) (8192, 2048)", "softmax(axis=0) (8192, 2048)", 2,
+         "normalized", None),
+        ("cumsum, 2**27", lambda be: cumsum(x, backend=be), 1, "sum",
+         lambda: torch.cumsum(x.double().abs(), 0)),
+        ("runtime.softmax (64, 92544)",
+         lambda be: (rt if be is None else plain_rt).softmax(logits), 2,
+         "normalized", None),
+        ("runtime.rmsnorm (4096, 2048)",
+         lambda be: (rt if be is None else plain_rt).rmsnorm(h, w), 2,
+         "normalized", None),
+        ("runtime.sample (64, 92544) at 0.8",
+         lambda be: (rt if be is None else plain_rt).sample(
+             logits, torch.Generator().manual_seed(SEED), 0.8), 2, "tokens",
+         None),
+        ("64 x runtime.submit_softmax (92544), one flush",
+         lambda be: submit_rows(rt) if be is None else plain_rt.softmax(
+             logits), 2, "normalized", None),
+    ]
+    steps = [(label, (lambda be, e=exprs[run]: e.evaluate(backend=be).value)
+              if isinstance(run, str) else run, n, kind, scale)
+             for label, run, n, kind, scale in steps]
+    torch.cuda.synchronize()
+    flushes0 = rt.executor.stats()["flushes"]
+    got, per_step = [], []
+    dispatch.reset_counters()                 # the library path starts here
+    t0 = time.perf_counter()
+    for label, run, _, _, _ in steps:
+        with dispatch.count_launches() as c:
+            got.append(run(None))
+            torch.cuda.synchronize()
+        per_step.append((c.delta, c.by_backend))
+    run_s = time.perf_counter() - t0
+    launches = dispatch.kernel_launch_counts()   # ... and ends here
+    if rt.executor.stats()["flushes"] != flushes0 + 1:
+        raise AssertionError("the 64 submitted rows did not flush as one")
+    rt.close()
+    for (label, run, want, kind, scale), out, (n, by) in zip(steps, got,
+                                                             per_step):
+        if (n, by) != (want, {"cuda": want}):
+            raise AssertionError(f"{label}: {n} launches {by}, the JAX "
+                                 f"package's schedule is {want} cuda")
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        ref = run("eager")
+        torch.cuda.synchronize()
+        if kind == "tokens":
+            if out.dtype != torch.int32 or out.shape != (64,) or \
+                    int(out.min()) < 0 or int(out.max()) >= MAIN_V:
+                raise AssertionError(f"{label}: bad tokens {out}")
+            # a uniform within float32 error of a CDF step may flip a draw
+            if int((out != ref).sum()) > 1:
+                raise AssertionError(f"{label}: draws differ from the plain "
+                                     f"version's: {(out != ref).sum()}")
+            err = float((out != ref).sum())
+        elif kind == "normalized":
+            # softmax / rmsnorm outputs: a float32 normalizer summed in
+            # another order (1e-5 relative, as the sum tolerance) plus
+            # the exp, sqrt and division roundings
+            d = (out.double() - ref.double()).abs()
+            if out.shape != ref.shape or not bool(
+                    (d <= 2e-5 * ref.double().abs() + 1e-6).all()):
+                raise AssertionError(f"{label}: max abs err {float(d.max())}")
+            err = float(d.max())
+        else:
+            err = _close(label, out, ref, kind,
+                         scale() if scale is not None else None)
+        log(f"  library {label}: {n} cuda launch(es) as in the JAX package, "
+            f"max abs err vs plain {err:.3e}")
+    missing = [k for k in LIB_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"library path never launched {missing}: "
+                             f"{launches}")
+    log(f"library path: {len(steps)} steps in {run_s:.2f} s, kernel "
+        f"launches {launches}")
+    return launches
+
+
 def _device_rows(prof, per: int) -> list:
     """(kernel name, device ms, launches) per unit of ``per`` from a
     ``torch.profiler`` run."""
@@ -455,7 +862,7 @@ def _call_ms(fn, reps: int = 50, warmup: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def timings(device, launches: dict, worst: dict) -> list:
+def timings(device, launches: dict, lib_launches: dict, worst: dict) -> list:
     import torch
     import torch.nn.functional as F
 
@@ -490,6 +897,9 @@ def timings(device, launches: dict, worst: dict) -> list:
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches.get(name, 0),
+                     "launches_by_path": {
+                         "serving": launches.get(name, 0),
+                         "library": lib_launches.get(name, 0)},
                      "max_abs_err": worst[label], "ms": ms,
                      "plain_ms": plain, "bound_ms": bound,
                      "bound_by": "bytes", "library_ms": None,
@@ -526,6 +936,78 @@ def timings(device, launches: dict, worst: dict) -> list:
     return rows
 
 
+def library_timings(device, lib: dict, launches: dict, serving: dict,
+                    worst: dict) -> list:
+    """The four library kernels at 2**27 float32 elements (axpy, the sum,
+    the ``+`` scan's two passes), plus the whole ``+`` scan, the dot and
+    the column sum over (8192, 2048) as extra lines: device ms, call ms,
+    plain ms, the bound and the library call that computes the same
+    function."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    x = torch.randn(LIB_N, generator=gen, device=device)
+    y = torch.randn(LIB_N, generator=gen, device=device)
+    cols = torch.randn((8192, 2048), generator=gen, device=device)
+    axpy, red_sum, dot = lib["axpy"], lib["sum"], lib["dot"]
+    col_sum, cumsum = lib["col_sum"], lib["scan_sum.incl"]
+    f32 = 4
+    src = "src/repro_torch/csrc/"
+    rows, extras = [], []
+    for (name, shape, source, replaces, run, match, nbytes, lib_name, libfn,
+         err) in (
+        ("flat_elementwise", "2**27 f32", "eltwise_flat.cu.j2",
+         "pallas.py:268", lambda be: axpy(2.5, x, y, x, backend=be),
+         "axpy_kernel", 3 * LIB_N * f32, "torch.add(x, y, alpha=a)",
+         lambda: torch.add(x, y, alpha=2.5), "flat_elementwise"),
+        ("flat_reduction", "2**27 f32", "reduce_flat.cu.j2", "pallas.py:349",
+         lambda be: red_sum(x, y, backend=be), "lib_sum_kernel",
+         LIB_N * f32 + f32, "torch.sum", lambda: torch.sum(x),
+         "flat_reduction"),
+        # the scan's function moves 2 n 4 bytes (read x, write the
+        # prefixes); each pass is given its share of that bound, pass 1
+        # the read and pass 2 the write (the tile sums it writes and
+        # pass 2 reads back are the two-pass design's, not the
+        # function's), and the whole call stands beside it as an extra
+        ("scan_pass1", "2**27 f32", "scan.cu.j2", "pallas.py:441",
+         lambda be: cumsum(x, backend=be), "scan_sum_pass1",
+         LIB_N * f32, "torch.cumsum", lambda: torch.cumsum(x, 0), "scan"),
+        ("scan_pass2", "2**27 f32", "scan.cu.j2", "pallas.py:446",
+         lambda be: cumsum(x, backend=be), "scan_sum_pass2",
+         LIB_N * f32, "torch.cumsum", lambda: torch.cumsum(x, 0), "scan"),
+        ("scan (+, whole call)", "2**27 f32", "scan.cu.j2",
+         "pallas.py:441,446", lambda be: cumsum(x, backend=be), None,
+         2 * LIB_N * f32, "torch.cumsum", lambda: torch.cumsum(x, 0), None),
+        ("flat_reduction (dot)", "2**27 f32", "reduce_flat.cu.j2",
+         "pallas.py:349", lambda be: dot(x, y, backend=be), "lib_dot_kernel",
+         2 * LIB_N * f32 + f32, "torch.dot", lambda: torch.dot(x, y), None),
+        ("row_reduction (axis=0 sum)", "(8192, 2048) f32", "row_reduce.cu.j2",
+         "pallas.py:391", lambda be: col_sum(cols, backend=be),
+         "lib_col_sum_kernel", 8192 * 2048 * f32 + 2048 * f32,
+         "torch.sum(dim=0)", lambda: torch.sum(cols, 0), None),
+    ):
+        ms = _device_ms(lambda: run("cuda"), match=match)
+        rec = {"name": name, "route": "cuda", "source": src + source,
+               "replaces": "src/repro/core/backends/" + replaces,
+               "launches": launches.get(name, 0),
+               "launches_by_path": {"serving": serving.get(name, 0),
+                                    "library": launches.get(name, 0)},
+               "max_abs_err": worst[err] if err else None,
+               "ms": ms, "plain_ms": _device_ms(lambda: run("eager")),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library": lib_name,
+               "library_ms": _device_ms(libfn),
+               "call_ms": _call_ms(lambda: run("cuda"), reps=10, rounds=3),
+               "shape": shape}
+        (rows if err else extras).append(rec)
+        log(f"time {name} at {shape}: device {ms:.4f} ms (call "
+            f"{rec['call_ms']:.4f} ms), plain device {rec['plain_ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 "
+            f"TB/s), {lib_name} {rec['library_ms']:.4f} ms")
+    log(json.dumps({"library_extras": extras}))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -544,12 +1026,16 @@ def main() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     smi = environment()
-    build_all()
+    lib = library_kernels()
+    build_all(lib)
     log("compare: cuda kernels against the eager plain versions")
     worst = compare_all(device)
+    lib_worst = compare_library(device, lib)
     reference_check(device)
     launches = main_path(device)
-    rows = timings(device, launches, worst)
+    lib_launches = library_path(device)
+    rows = timings(device, launches, lib_launches, worst) + \
+        library_timings(device, lib, lib_launches, launches, lib_worst)
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -23,7 +23,7 @@ import os
 from typing import Callable
 
 from repro_torch.core.backends.base import (Backend, ElementwiseSpec,
-                                            ReductionSpec)
+                                            ReductionSpec, ScanSpec)
 from repro_torch.core.backends.cuda import CudaBackend
 from repro_torch.core.backends.eager import EagerBackend
 
@@ -79,7 +79,7 @@ def get_backend(name: "str | Backend | None" = None, operand=None) -> Backend:
 
 
 __all__ = [
-    "Backend", "ElementwiseSpec", "ReductionSpec", "CudaBackend",
+    "Backend", "ElementwiseSpec", "ReductionSpec", "ScanSpec", "CudaBackend",
     "EagerBackend", "ENV_VAR", "available_backends", "active_backend_name",
     "backend_for_device", "get_backend",
 ]

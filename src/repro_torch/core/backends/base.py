@@ -6,9 +6,9 @@ caching, planning) and a *target-specific* back half (compile and
 launch) — PyCUDA and PyOpenCL share everything but the last step.  The
 port keeps the JAX package's split:
 
-  * the kernel families (`elementwise` / `reduction`) produce **specs**
-    — frozen descriptions of the *untranslated C snippets* plus argument
-    metadata;
+  * the kernel families (`elementwise` / `reduction` / `scan`) produce
+    **specs** — frozen descriptions of the *untranslated C snippets*
+    plus argument metadata;
   * the specs lower into the kernel IR (`repro_torch.core.ir`) and a
     chain of pure transformations schedules it — that pipeline lives
     HERE, in the concrete ``*_driver`` methods, shared by every backend;
@@ -16,9 +16,15 @@ port keeps the JAX package's split:
     (IR -> source text, translating the C snippets for its target) and
     ``build_*`` (the driver: bind operands, launch, return outputs).
 
-Drivers keep the JAX package's calling convention for the rows forms:
-``driver(b, n, flat_args, row_lens=None)``.  The flat forms and scans
-are not ported yet (ROADMAP Queue 2, items 3-5).
+Drivers keep the JAX package's calling conventions:
+
+  * flat elementwise/reduction: ``driver(n, flat_args)``;
+  * row-segmented (axis=-1):    ``driver(b, n, flat_args, row_lens=None)``;
+  * column-segmented (axis=0):  ``driver(b, n, flat_args)`` over the
+    *domain* geometry (b = outputs, n = reduced length) with operands in
+    storage order — the IR's ``transpose_layout`` tells the backend to
+    bind full operands transposed (a strided view, never a copy);
+  * scan:                       ``driver(n, x)``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.platform import bind_row_operand, canonical_dtype
+from repro_torch.core.platform import (LANES, bind_flat_operand,
+                                       bind_row_operand, canonical_dtype)
 
 
 @dataclass(frozen=True)
@@ -39,7 +46,8 @@ class ElementwiseSpec:
     ``body_lines`` are the *C* statements of the snippet, untranslated
     (each backend translates them for its target at render time).
     ``arg_meta`` is ``(name, torch dtype, kind)`` per positional argument
-    with kind in scalar|full|row|col.
+    with kind in scalar|full|row|col.  ``needs_i``: the snippet reads
+    the flat element index ``i`` (flat layout only).
     """
 
     name: str
@@ -68,9 +76,11 @@ class ReductionSpec:
     ``outs`` holds one dict per accumulator, all C text: ``map_expr``,
     ``neutral`` (literal), ``reducer`` (sum | prod | max | min — what a
     backend folds with), ``combine`` (the C combine expression of ``a``
-    and ``b``) and ``dtype``.  ``axis`` is -1 (row-segmented: one
-    accumulator per row; later map expressions may reference earlier
-    accumulators as ``_acc<k>``).
+    and ``b``) and ``dtype``.  ``axis`` is None (flat: one scalar per
+    accumulator), -1 (row-segmented: one accumulator per row; later map
+    expressions may reference earlier accumulators as ``_acc<k>``) or 0
+    (column-segmented: the same segmented kernel over the transposed
+    layout; arg kinds stay in STORAGE orientation).
     """
 
     name: str
@@ -89,6 +99,25 @@ class ReductionSpec:
                 list(self.prelude_lines),
                 [sorted(o.items()) for o in self.outs],
                 self.multi, repr(self.axis), self.preamble]
+
+
+@dataclass(frozen=True)
+class ScanSpec:
+    """Description of one prefix scan.  ``cumop`` names the fold (sum |
+    prod | max | min), ``binop`` is its C combine of ``a`` and ``b``,
+    ``neutral`` a C literal; inclusive results fold the neutral in once
+    (``binop(scan(x), neutral)``), as the JAX package's carries do."""
+
+    name: str
+    dtype: str                 # dtype name, e.g. "float32"
+    neutral: str
+    cumop: str
+    binop: str
+    exclusive: bool
+
+    def token(self) -> list:
+        return ["scan", self.name, self.dtype, self.neutral, self.cumop,
+                self.binop, self.exclusive]
 
 
 class Backend(abc.ABC):
@@ -111,6 +140,17 @@ class Backend(abc.ABC):
         """Capability/version record; differs between any two backends."""
 
     # ================= shared lowering pipeline (spec -> IR -> build)
+    def elementwise_driver(self, spec: ElementwiseSpec, *, bucket: int,
+                           block_rows: int) -> Callable:
+        """Compile one flat-layout driver: ``driver(n, flat_args) ->
+        [flat outputs]`` serving every ``n`` whose rows fit ``bucket``."""
+        from repro_torch.core import ir
+
+        kir = ir.lower_elementwise(spec, rows=bucket, lanes=LANES)
+        kir = ir.tag_parallel(kir, "rows")
+        kir = ir.tile(kir, "rows", block_rows)
+        return self.build_elementwise(kir)
+
     def elementwise_rows_driver(self, spec: ElementwiseSpec, *, brows: int,
                                 ncols: int, block_rows: int,
                                 ragged: bool = False) -> Callable:
@@ -126,20 +166,51 @@ class Backend(abc.ABC):
         kir = ir.tile(kir, "rows", block_rows)
         return self.build_elementwise_rows(kir)
 
+    def reduction_driver(self, spec: ReductionSpec, *, bucket: int,
+                         block_rows: int) -> Callable:
+        """Compile one flat map+reduce driver: ``driver(n, flat_args)``
+        returning a 0-d tensor (a tuple of them when ``spec.multi``).
+        The rows axis stays SEQUENTIAL, as in the JAX package's IR."""
+        from repro_torch.core import ir
+
+        kir = ir.lower_reduction(spec, rows=bucket, cols=LANES)
+        kir = ir.tile(kir, "rows", block_rows)
+        return self.build_reduction(kir)
+
     def reduction_rows_driver(self, spec: ReductionSpec, *, brows: int,
                               ncols: int, block_rows: int,
                               ragged: bool = False) -> Callable:
         """Compile one segmented driver: ``driver(b, n, flat_args,
         row_lens=None)`` returning ``(b,)`` outputs (a tuple when
-        ``spec.multi``).  ``ragged=True`` replaces the shared row length
-        ``n`` with a per-row length vector."""
+        ``spec.multi``).  ``brows``/``ncols`` are DOMAIN buckets; for
+        ``spec.axis == 0`` the domain is the transpose of the stored
+        arrays, so ``transpose_layout`` joins the chain.  ``ragged=True``
+        replaces the shared row length ``n`` with a per-row length vector
+        (axis=-1 only)."""
         from repro_torch.core import ir
 
+        if ragged and spec.axis == 0:
+            raise ValueError("ragged reduction is axis=-1 only "
+                             "(axis=0 reduces across the stored rows)")
         kir = ir.lower_reduction(spec, rows=brows, cols=ncols,
                                  layout="rows", ragged=ragged)
+        if spec.axis == 0:
+            kir = ir.transpose_layout(kir)
         kir = ir.tag_parallel(kir, "rows")
         kir = ir.tile(kir, "rows", block_rows)
         return self.build_reduction_rows(kir)
+
+    def scan_driver(self, spec: ScanSpec, *, grid: int,
+                    block_n: int) -> Callable:
+        """Compile one prefix-scan driver: ``driver(n, x) -> flat out``.
+        The stream axis splits into (blocks x elements); the inner axis
+        is parallel within a block, the outer carries the prefix."""
+        from repro_torch.core import ir
+
+        kir = ir.lower_scan(spec, n=grid * block_n)
+        kir = ir.split(kir, "stream", block_n)
+        kir = ir.tag_parallel(kir, "stream.i")
+        return self.build_scan(kir)
 
     # =========================== backend obligations (IR in, code out)
     @abc.abstractmethod
@@ -147,27 +218,25 @@ class Backend(abc.ABC):
         """Render a transformed `KernelIR` to source text."""
 
     @abc.abstractmethod
+    def build_elementwise(self, kir) -> Callable:
+        """Assemble the flat elementwise driver from a tiled IR."""
+
+    @abc.abstractmethod
     def build_elementwise_rows(self, kir) -> Callable:
         """Assemble the row-layout elementwise driver from a tiled IR."""
 
     @abc.abstractmethod
-    def build_reduction_rows(self, kir) -> Callable:
-        """Assemble the segmented reduction driver from a tiled IR."""
-
-    def build_elementwise(self, kir) -> Callable:
-        raise NotImplementedError(
-            "flat-layout elementwise kernels are ported with ROADMAP "
-            "Queue 2 item 3 (pallas.py:268)")
-
     def build_reduction(self, kir) -> Callable:
-        raise NotImplementedError(
-            "flat reductions are ported with ROADMAP Queue 2 item 4 "
-            "(pallas.py:349)")
+        """Assemble the flat map+reduce driver from a tiled IR."""
 
+    @abc.abstractmethod
+    def build_reduction_rows(self, kir) -> Callable:
+        """Assemble the segmented reduction driver from a tiled IR
+        (honouring ``kir.transposed`` at operand-bind time)."""
+
+    @abc.abstractmethod
     def build_scan(self, kir) -> Callable:
-        raise NotImplementedError(
-            "prefix scans are ported with ROADMAP Queue 2 item 5 "
-            "(pallas.py:441, :446)")
+        """Assemble the prefix-scan driver from a split IR."""
 
 
 # ------------------------------------------------- shared operand binding
@@ -180,14 +249,37 @@ def operand_device(kir, flat_args) -> torch.device:
     raise ValueError(f"kernel {kir.name!r} has no full vector operand")
 
 
-def bind_operands(kir, b: int, n: int, flat_args, device) -> list:
-    """Bind every positional operand of a rows-form kernel (see
-    `platform.bind_row_operand`)."""
+def check_arity(kir, flat_args) -> None:
     if len(flat_args) != len(kir.args):
         raise TypeError(f"kernel {kir.name!r} takes {len(kir.args)} "
                         f"arguments, got {len(flat_args)}")
-    return [bind_row_operand(kind, name, arg, canonical_dtype(dt), b, n,
-                             device)
+
+
+def bind_operand(kir, kind: str, name: str, arg, dt, b: int, n: int,
+                 device):
+    """Bind one rows-form operand in DOMAIN order (see
+    `platform.bind_row_operand`): a transposed (axis=0) full operand is
+    bound in its storage order ``(n, b)`` and handed on as the
+    transposed ``(b, n)`` view, so no copy is made."""
+    dt = canonical_dtype(dt)
+    if kir.transposed and kind == "full":
+        return bind_row_operand(kind, name, arg, dt, n, b, device).t()
+    return bind_row_operand(kind, name, arg, dt, b, n, device)
+
+
+def bind_operands(kir, b: int, n: int, flat_args, device) -> list:
+    """Bind every positional operand of a rows-form kernel."""
+    check_arity(kir, flat_args)
+    return [bind_operand(kir, kind, name, arg, dt, b, n, device)
+            for (name, dt, kind), arg in zip(kir.args, flat_args)]
+
+
+def bind_flat_operands(kir, n: int, flat_args, device) -> list:
+    """Bind every positional operand of a flat-layout kernel (see
+    `platform.bind_flat_operand`)."""
+    check_arity(kir, flat_args)
+    return [bind_flat_operand(kind, name, arg, canonical_dtype(dt), n,
+                              device)
             for (name, dt, kind), arg in zip(kir.args, flat_args)]
 
 

@@ -5,8 +5,9 @@ to *re-launch*: compilation is amortized by the cache, so the steady
 state must be a dictionary lookup.  The port keeps the JAX package's
 bucketing math and counters unchanged:
 
-  * a ``(B, N)`` row workload buckets to ``(bucket_batch, bucket_cols)``
-    — powers of two — and one driver serves the whole bucket pair, so a
+  * a flat workload of ``n`` elements buckets to ``bucket_rows`` rows
+    of 128, a ``(B, N)`` row workload to ``(bucket_batch, bucket_cols)``
+    — powers of two — and one driver serves the whole bucket, so a
     size sweep over a ``k×`` range builds ``ceil(log2(k)) + 1`` drivers;
   * drivers live in one bounded, shared `LRUCache` keyed per backend;
   * the compile and launch counters count driver builds and successful
@@ -57,6 +58,31 @@ def run_with_retries(fn: Callable[[], Any], *, site: str,
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (x >= 1)."""
     return 1 << (max(1, int(x)) - 1).bit_length()
+
+
+def bucket_rows(n: int, block_rows: int, lanes: int = LANES) -> int:
+    """Padded row count of ``n`` elements in ``lanes``-wide rows, rounded
+    to its pow2 bucket and a multiple of ``block_rows``: the flat
+    layout's bucket (the CUDA kernels mask at ``n``; the bucket keys the
+    driver, so a size sweep builds as many drivers as in the JAX
+    package)."""
+    rows = -(-n // lanes)
+    rows = -(-rows // block_rows) * block_rows
+    bucket = next_pow2(rows)
+    return -(-bucket // block_rows) * block_rows
+
+
+def n_bucket(n: int, lanes: int = LANES) -> int:
+    """Shape bucket of an element count, independent of ``block_rows``."""
+    return next_pow2(-(-n // lanes))
+
+
+def default_block_rows(n: int, lanes: int = LANES, target_grid: int = 8,
+                       min_rows: int = 8, max_rows: int = 512) -> int:
+    """Bucket-derived default flat ``block_rows`` (the JAX package's
+    rule, kept so both packages pick the same bucket per ``n``)."""
+    br = n_bucket(n, lanes) // target_grid
+    return max(min_rows, min(max_rows, br or min_rows))
 
 
 def bucket_batch(b: int, block_rows: int) -> int:

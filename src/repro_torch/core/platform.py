@@ -119,6 +119,32 @@ def rows_geometry(first_vec) -> tuple[int, int]:
     return b, n
 
 
+def _check_device(kind: str, name: str, arg, device: torch.device) -> None:
+    if isinstance(arg, torch.Tensor) and arg.device != device and (
+            kind != "scalar" or arg.numel() != 1):
+        raise ValueError(f"argument {name!r} lies on {arg.device}, the "
+                         f"leading operand on {device}")
+
+
+def bind_flat_operand(kind: str, name: str, arg, dt: torch.dtype, n: int,
+                      device: torch.device):
+    """Validate one flat-layout operand against the element count ``n``
+    and bind it as a contiguous 1-D tensor of dtype ``dt`` on ``device``
+    (a scalar as a 0-d tensor).  The JAX package's ``pad_flat_operand``
+    rules without the padding: a vector whose size differs from ``n``
+    raises (padding must never hide a size bug), and nothing is padded
+    to the bucket — the kernels mask the tail at ``n``."""
+    _check_device(kind, name, arg, device)
+    if kind == "scalar":
+        return torch.as_tensor(arg, dtype=dt, device=device).reshape(())
+    v = torch.as_tensor(arg, device=device).reshape(-1)
+    if v.numel() != n:
+        raise ValueError(
+            f"vector argument {name!r} has {v.numel()} elements, "
+            f"expected {n} (size of the first vector argument)")
+    return v.to(dt).contiguous()
+
+
 def bind_row_operand(kind: str, name: str, arg, dt: torch.dtype, b: int,
                      n: int, device: torch.device):
     """Validate one operand against the ``(b, n)`` geometry and bind it
@@ -130,10 +156,7 @@ def bind_row_operand(kind: str, name: str, arg, dt: torch.dtype, b: int,
     the bucket, because neither backend's code depends on the bucket
     shape (the CUDA kernels take ``b``, ``n`` and the strides at run
     time)."""
-    if isinstance(arg, torch.Tensor) and arg.device != device and (
-            kind != "scalar" or arg.numel() != 1):
-        raise ValueError(f"argument {name!r} lies on {arg.device}, the "
-                         f"leading operand on {device}")
+    _check_device(kind, name, arg, device)
     if kind == "scalar":
         return torch.as_tensor(arg, dtype=dt, device=device).reshape(())
     v = torch.as_tensor(arg, device=device).to(dt)

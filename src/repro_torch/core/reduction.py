@@ -4,17 +4,33 @@ PyCUDA's ReductionKernel takes a ``map_expr`` applied per element and a
 ``reduce_expr`` combining pairs, plus a neutral element.  The family
 describes that computation as a `ReductionSpec` — the snippets stay C —
 and hands it, with a bucketed geometry, to an execution backend:
-``cuda`` renders the spec into a CUDA C row reduction, ``eager`` into
-torch folds.
+``cuda`` renders the spec into a CUDA C reduction, ``eager`` into torch
+folds.
 
-This slice ports the row-segmented form (``axis=-1``), which the serving
-path runs: each row of a ``(B, N)`` operand reduces to its own
-accumulator in ONE launch, the runtime row length ``n`` (or, with
-``row_lens=``, each row's own length) masks the columns past it with the
-neutral element, and outputs are length-B vectors.  A later
-accumulator's map expression may reference an earlier one as
-``_acc<k>`` — how stable softmax computes the row max *and* the shifted
-exp-sum in a single launch:
+    dot = ReductionKernel(torch.float32, neutral="0", reduce_expr="a+b",
+                          map_expr="x[i]*y[i]", arguments="float *x, float *y")
+    dot(x, y)                                    # a 0-d tensor
+
+Three forms:
+
+  * flat (``axis=None``, default): the ``n`` elements of the first
+    vector argument fold to one 0-d result per accumulator, in ONE
+    launch; element counts bucket like the elementwise flat layout;
+  * row-segmented (``axis=-1``): each row of a ``(B, N)`` operand
+    reduces to its own accumulator in ONE launch, the runtime row length
+    ``n`` (or, with ``row_lens=``, each row's own length) masking the
+    columns past it with the neutral element; outputs are length-B
+    vectors, and a later accumulator's map expression may reference an
+    earlier one as ``_acc<k>`` — how stable softmax computes the row max
+    *and* the shifted exp-sum in a single launch;
+  * column-segmented (``axis=0``): each *column* of a ``(B, N)`` operand
+    reduces to a length-N vector through the same segmented kernel over
+    the IR's ``transpose_layout`` domain (per-row and per-col kinds swap;
+    the operands are bound with swapped strides, never copied).
+
+Multi-accumulator form: pass *lists* for ``dtype_out`` / ``neutral`` /
+``reduce_expr`` / ``map_expr`` and every map expression folds in one
+pass of the inputs — sibling reductions cost ONE launch:
 
     wave = ReductionKernel([torch.float32] * 2, ["-3.4e38", "0"],
                            ["fmaxf(a, b)", "a + b"],
@@ -22,16 +38,17 @@ exp-sum in a single launch:
                            "float *x", axis=-1)
     row_max, row_sum = wave(x)                   # or wave(x, row_lens=lens)
 
-Arguments may include `BroadcastArg`s (per-row ``(B, 1)`` or per-col
-``(1, N)`` values); ``prelude`` lists extra C assignment statements
-evaluated per element before the map expressions.  The flat form
-(``axis=None``) and the column form (``axis=0``) raise until ROADMAP
-Queue 2 item 4 ports them.
+Arguments of the segmented forms may include `BroadcastArg`s (per-row
+``(B, 1)`` or per-col ``(1, N)`` values); ``prelude`` lists extra C
+assignment statements evaluated per element before the map expressions.
+Autotuning ``block_rows`` waits for ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
 
 import re
+
+import numpy as np
 
 from repro_torch.core import backends, dispatch
 from repro_torch.core.backends.base import ReductionSpec
@@ -70,11 +87,10 @@ class ReductionKernel:
         dtypes_out = _aslist(dtype_out)
         if not (len(neutrals) == len(reduce_exprs) == len(dtypes_out) == k):
             raise ValueError("dtype_out/neutral/reduce_expr/map_expr lengths differ")
-        if axis != -1:
-            raise NotImplementedError(
-                "this slice ports the row-segmented form (axis=-1); the "
-                "flat (axis=None) and column (axis=0) reductions are "
-                "ported with ROADMAP Queue 2 item 4")
+        if axis not in (None, -1, 0):
+            raise NotImplementedError("only axis=None (full), axis=-1 "
+                                      "(row-segmented) or axis=0 "
+                                      "(column-segmented) reductions")
 
         self.dtypes_out = [canonical_dtype(d) for d in dtypes_out]
         self.neutrals = [str(nt).strip() for nt in neutrals]
@@ -98,6 +114,10 @@ class ReductionKernel:
         self.scalar_args = [a for a in self.args if isinstance(a, ScalarArg)]
         self.vector_args = [a for a in self.args if isinstance(a, VectorArg)]
         self.bcast_args = [a for a in self.args if isinstance(a, BroadcastArg)]
+        if self.bcast_args and self.axis is None:
+            raise ValueError("BroadcastArg requires a segmented form "
+                             "(axis=-1 or axis=0); a flat reduction cannot "
+                             "bind per-row/per-col values")
         if not self.vector_args:
             raise ValueError("reduction needs at least one vector argument")
         names = [a.name for a in self.args]
@@ -126,14 +146,21 @@ class ReductionKernel:
         )
         self._content_key = stable_hash(self.spec.token())
 
-    def render(self, block_rows: int, ncols: int, backend: "str | None" = None,
-               ragged: bool = False) -> str:
+    def render(self, block_rows: int, ncols: "int | None" = None,
+               backend: "str | None" = None, ragged: bool = False) -> str:
         """Source this kernel's spec renders to on ``backend``."""
         from repro_torch.core import ir
+        from repro_torch.core.platform import LANES
 
-        kir = ir.lower_reduction(self.spec, rows=block_rows, cols=ncols,
-                                 layout="rows", ragged=ragged)
-        kir = ir.tile(ir.tag_parallel(kir, "rows"), "rows", block_rows)
+        if self.axis is None:
+            kir = ir.lower_reduction(self.spec, rows=block_rows, cols=LANES)
+        else:
+            kir = ir.lower_reduction(self.spec, rows=block_rows, cols=ncols,
+                                     layout="rows", ragged=ragged)
+            if self.axis == 0:
+                kir = ir.transpose_layout(kir)
+            kir = ir.tag_parallel(kir, "rows")
+        kir = ir.tile(kir, "rows", block_rows)
         return backends.get_backend(backend or self.backend).render_ir(kir)
 
     # -- driver -----------------------------------------------------------
@@ -141,8 +168,37 @@ class ReductionKernel:
                  backend: "str | None" = None, row_lens=None):
         first = call_args[self._first_vec_pos]
         be = backends.get_backend(backend or self.backend, first)
-        ragged = row_lens is not None
+        if row_lens is not None and self.axis is None:
+            raise ValueError("row_lens requires the row-segmented form "
+                             "(axis=-1)")
+        if self.axis is not None:
+            return self._call_rows(call_args, block_rows, be, row_lens)
+        n = int(np.prod(tuple(first.shape), dtype=np.int64))
+        br = block_rows or self.block_rows or dispatch.default_block_rows(n)
+        bucket = dispatch.bucket_rows(n, br)
+        key = ("reduce", be.name, self._content_key, bucket,
+               br if be.block_sensitive else 0)
+        drv = dispatch.get_or_build(
+            key,
+            lambda: be.reduction_driver(self.spec, bucket=bucket,
+                                        block_rows=br),
+            backend=be.name, name=self.name, bucket=(bucket,))
+        out = dispatch.run_with_retries(
+            lambda: drv(n, call_args), site="launch", backend=be.name,
+            family=self.name, bucket=(bucket,))
+        dispatch.record_launch(be.name)  # after the driver: failed launches don't count
+        return out
+
+    def _domain_geometry(self, first) -> tuple[int, int]:
+        """Kernel-domain (rows, cols) counts: axis=0 reduces each storage
+        *column*, so `transpose_layout` makes every output column a
+        domain row — (B, N) storage becomes an (N, B) domain."""
         b, n = rows_geometry(first)
+        return (n, b) if self.axis == 0 else (b, n)
+
+    def _call_rows(self, call_args, block_rows, be, row_lens):
+        ragged = row_lens is not None
+        b, n = self._domain_geometry(call_args[self._first_vec_pos])
         br = block_rows or self.block_rows or dispatch.default_batch_block(b)
         brows = dispatch.bucket_batch(b, br)
         ncols = dispatch.bucket_cols(n)
@@ -162,6 +218,11 @@ class ReductionKernel:
             backend=be.name, family=self.name, bucket=site_bucket)
         dispatch.record_launch(be.name)  # after the driver: failed launches don't count
         return out
+
+    def autotune(self, *call_args, **kwargs):
+        raise NotImplementedError(
+            "per-bucket autotuning of block_rows (an H100 cost model or a "
+            "wall-clock tuner) is ported with ROADMAP Queue 1 item 6")
 
 
 __all__ = ["ReductionKernel"]

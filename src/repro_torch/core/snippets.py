@@ -237,6 +237,13 @@ def extract_cumsum(expr: str, start: int = 0) -> tuple[str, list]:
             break
 
 
+def uses_index(expr: str) -> bool:
+    """Whether a snippet reads the flat element index ``i`` itself (not
+    only as the ``[i]`` of an operand)."""
+    return bool(re.search(r"\bi\b", _SUBSCRIPT_RE.sub(lambda m: m.group(1),
+                                                      expr)))
+
+
 def written_names(operation: str) -> list[str]:
     """Vector names assigned via ``name[i] = ...`` in declaration order."""
     seen: list[str] = []

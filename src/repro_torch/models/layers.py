@@ -1,8 +1,12 @@
-"""Shared model layers: norms, RoPE and the dense MLP.
+"""Shared model layers: norms, RoPE, the planner softmax/RMSNorm and the
+dense MLP.
 
 The port of the JAX package's ``models/layers.py`` for the dense
 decoder: the same arithmetic, in torch (norms in float32 and cast back,
 RoPE with split — not interleaved — halves, swiglu or tanh-gelu MLPs).
+`fused_softmax` and `rtcg_rmsnorm` are library functions over the fusion
+planner (2 generated launches each); the model itself keeps
+``torch.softmax``, as the jitted JAX model keeps ``jax.nn.softmax``.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.platform import canonical_dtype
 
 
 def norm(cfg: ModelConfig, p: dict, name: str, x):
@@ -50,6 +55,51 @@ def position_encode(cfg: ModelConfig, x, positions):
     if cfg.pos_type == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
     return x
+
+
+# ------------------------------------------------------------- softmax
+_AUTO = ("backend='auto' (the serving runtime's latency router) is "
+         "ported with ROADMAP Queue 1 item 2")
+
+
+def fused_softmax(x, *, stable: bool = True, backend: "str | None" = None):
+    """Softmax along the last axis through the fusion planner: inputs of
+    ANY batch shape run as ONE segmented reduction wave plus ONE fused
+    2-D epilogue — 2 launches for the whole batch, ``stable=True``
+    included (the row max and the shifted-exp sum share one wave).
+    ``backend`` pins the execution backend (default: the tensor's
+    device decides)."""
+    if isinstance(backend, str) and backend.lower() == "auto":
+        raise NotImplementedError(_AUTO)
+    if x.ndim == 0:
+        return torch.softmax(x, dim=-1)
+    from repro_torch.core import array as ga
+
+    # the plan computes in float32 whatever the input's type (exp
+    # promotes), so binding float32 rows changes no result and lets the
+    # CUDA kernels take bf16 inputs too
+    rows = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    out = ga.softmax(ga.RTCGArray(rows), stable=stable).evaluate(
+        backend=backend).value
+    return out.reshape(x.shape).to(canonical_dtype(x.dtype))
+
+
+def rtcg_rmsnorm(x, w, *, eps: float = 1e-6, backend: "str | None" = None):
+    """Planner-backed RMSNorm: ``x / sqrt(mean(x^2, -1) + eps) * w`` in
+    float32 as ONE segmented reduction wave plus ONE fused 2-D epilogue
+    (2 launches), the ``(N,)`` weight broadcast per column and the
+    per-row ``mean`` re-entering the epilogue per row; cast back to the
+    input dtype."""
+    if isinstance(backend, str) and backend.lower() == "auto":
+        raise NotImplementedError(_AUTO)
+    from repro_torch.core import array as ga
+
+    orig = x.shape
+    X = ga.RTCGArray(x.reshape(-1, orig[-1]).to(torch.float32))
+    W = ga.RTCGArray(torch.as_tensor(w, device=x.device).to(torch.float32))
+    out = (X / (((X * X).mean(axis=-1) + eps).sqrt()) * W).evaluate(
+        backend=backend).value
+    return out.reshape(orig).to(canonical_dtype(x.dtype))
 
 
 # ---------------------------------------------------------------- MLPs

@@ -1,24 +1,32 @@
-"""Serving runtime — the coalescing executor over the ragged row families.
+"""Serving runtime — the coalescing executor over the kernel families.
 
-The port of the JAX package's ``runtime/__init__.py`` for the serving
-path: a `ServingRuntime` with a *pinned* backend (``cuda`` on the card,
+The port of the JAX package's ``runtime/__init__.py``: a
+`ServingRuntime` with a *pinned* backend (``cuda`` on the card,
 ``eager`` on the CPU) and its `CoalescingExecutor`.  Independent
 single-row requests — one sampler row per live decode slot — coalesce
-into ONE ragged flush: a row-segmented reduction wave plus one fused
-2-D epilogue, 2 generated launches for the whole batch, whatever the
-mix of row lengths.
+into ONE flush: a row-segmented reduction wave plus one fused 2-D
+epilogue, 2 generated launches for the whole batch.
 
     rt = ServingRuntime(backend="cuda")             # the card
     futs = [rt.submit_sample(row, gen, temperature=0.8) for row in rows]
     rt.flush()
     tokens = [f.result() for f in futs]             # one 2-launch flush
 
-Families: ``softmax.cdf`` (the sampler: softmax with its inverse-CDF
-``cumsumf`` fused into the epilogue launch), ``softmax`` and
-``rmsnorm``, all ragged.  What waits for its ROADMAP Queue 1 item raises
-`NotImplementedError`: ``backend="auto"`` and the router, the warm-start
-manifest, the fault harness (item 2), and the dense planner families
-(item 1).
+Families, each 2 launches per flush:
+
+  * ragged (rows of any length, each masked to its own length):
+    ``softmax.cdf`` (the sampler: softmax with its inverse-CDF
+    ``cumsumf`` fused into the epilogue launch), ``softmax``,
+    ``rmsnorm``;
+  * dense, through the fusion planner (`repro_torch.core.array`):
+    ``softmax`` (stable or not), ``softmax.axis0`` (column softmax over
+    the IR's transposed domain) and ``rmsnorm`` — what
+    `ServingRuntime.softmax` / `rmsnorm` / `sample` and the non-ragged
+    ``submit_softmax`` / ``submit_rmsnorm`` run.
+
+What waits for ROADMAP Queue 1 item 2 raises `NotImplementedError`:
+``backend="auto"`` and the router, the warm-start manifest, the fault
+harness.
 """
 
 from __future__ import annotations
@@ -31,13 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import backends as _backends
 from repro_torch.core import dispatch
-from repro_torch.core.platform import resolve_device
+from repro_torch.core.platform import canonical_dtype, resolve_device
 from repro_torch.runtime.executor import CoalescingExecutor, RuntimeFuture
 from repro_torch.runtime.kvcache import FleetOverloadError, RequestsCache
-
-_PLANNER = ("the dense runtime families need the fusion planner, ported "
-            "with ROADMAP Queue 1 item 1")
-
 
 class ServingRuntime:
     """Executor + pinned backend: the serving layer of the port.
@@ -69,11 +73,36 @@ class ServingRuntime:
     def _run_batch(self, family: str, X, shared: dict,
                    backend: "str | None" = None, row_lens=None):
         """Run one fused row schedule over a stacked ``(K, N)`` operand —
-        the executor's flush target.  Only the ragged schedules are
-        ported: ``row_lens`` (one length per row) is required."""
-        if row_lens is None:
-            raise NotImplementedError(_PLANNER)
-        return self._run_ragged(family, X, shared, row_lens, backend=backend)
+        the executor's flush target.  With ``row_lens`` (one length per
+        row) the schedule runs the *ragged* kernel pair; without, the
+        dense family goes through the fusion planner: one segmented
+        reduction wave plus one fused epilogue."""
+        if row_lens is not None:
+            return self._run_ragged(family, X, shared, row_lens,
+                                    backend=backend)
+        from repro_torch.core import array as ga
+
+        be = backend or self.backend
+        X = torch.as_tensor(X).to(self.device)
+        if family == "softmax.cdf":
+            raise ValueError("family 'softmax.cdf' is ragged-only "
+                             "(pass row_lens=)")
+        if family in ("softmax", "softmax.axis0"):
+            # the plan computes in float32 whatever the input's type (exp
+            # promotes), so float32 operands change no result and let the
+            # CUDA kernels serve bf16 rows too
+            axis = 0 if family == "softmax.axis0" else -1
+            return ga.softmax(ga.RTCGArray(X.to(torch.float32)),
+                              stable=bool(shared.get("stable", True)),
+                              axis=axis).evaluate(backend=be).value
+        if family == "rmsnorm":
+            w = torch.as_tensor(shared["w"]).to(self.device, X.dtype)
+            eps = float(shared.get("eps", 1e-6))
+            Xa, W = ga.RTCGArray(X), ga.RTCGArray(w)
+            return (Xa / (((Xa * Xa).mean(axis=-1) + eps).sqrt())
+                    * W).evaluate(backend=be).value
+        raise ValueError(f"unknown runtime family {family!r} "
+                         "(softmax | softmax.axis0 | rmsnorm)")
 
     def _run_ragged(self, family: str, X, shared: dict, row_lens,
                     backend: "str | None" = None):
@@ -116,16 +145,64 @@ class ServingRuntime:
         raise ValueError(f"unknown ragged family {family!r} "
                          "(softmax | softmax.cdf | rmsnorm)")
 
-    # -- dense (planner) calls: not in this slice ------------------------
-    def softmax(self, x, stable: bool = True, backend=None, axis: int = -1):
-        raise NotImplementedError(_PLANNER)
+    # -- direct (already-batched) calls ----------------------------------
+    def _operand(self, x) -> torch.Tensor:
+        """``x`` on the runtime's device, in its dtype under the JAX
+        x64-off rule (float64 -> float32, int64 -> int32)."""
+        X = torch.as_tensor(x).to(self.device)
+        return X.to(canonical_dtype(X.dtype))
 
-    def rmsnorm(self, x, w, eps: float = 1e-6, backend=None):
-        raise NotImplementedError(_PLANNER)
+    def softmax(self, x, stable: bool = True,
+                backend: "str | None" = None, axis: int = -1):
+        """Softmax over a whole operand (any batch shape): ONE 2-launch
+        row schedule.  ``axis=0`` normalizes the *columns* of a 2-D
+        operand (the ``softmax.axis0`` family) — the same schedule over
+        the kernel IR's transposed domain."""
+        X = self._operand(x)
+        if axis in (0, -2) and X.ndim >= 2:
+            if X.ndim != 2:
+                raise ValueError("axis=0 softmax requires a 2-D operand")
+            out = self._run_batch("softmax.axis0", X, {"stable": stable},
+                                  backend=backend)
+            return out.reshape(X.shape).to(X.dtype)
+        rows = X.reshape(-1, X.shape[-1]) if X.ndim >= 2 else X.reshape(1, -1)
+        out = self._run_batch("softmax", rows, {"stable": stable},
+                              backend=backend)
+        return out.reshape(X.shape).to(X.dtype)
 
-    def sample(self, logits, generator, temperature: float = 1.0,
-               backend=None):
-        raise NotImplementedError(_PLANNER)
+    def rmsnorm(self, x, w, eps: float = 1e-6,
+                backend: "str | None" = None):
+        """Planner RMSNorm in float32 (like `models.layers.rtcg_rmsnorm`),
+        cast back to the input dtype."""
+        X = self._operand(x)
+        rows = X.reshape(-1, X.shape[-1]).to(torch.float32)
+        w32 = torch.as_tensor(w).to(self.device, torch.float32)
+        out = self._run_batch("rmsnorm", rows, {"w": w32, "eps": eps},
+                              backend=backend)
+        return out.reshape(X.shape).to(X.dtype)
+
+    def sample(self, logits, generator: "torch.Generator | None",
+               temperature: float = 1.0, backend: "str | None" = None):
+        """Temperature sampling with the softmax run by the runtime: the
+        probabilities of the whole ``(B, V)`` block come from ONE 2-launch
+        schedule; the draw is one uniform per row from ``generator`` (a
+        CPU `torch.Generator`, in place of the JAX package's key) and a
+        float64 host inverse-CDF, as in the JAX package.  Temperature 0
+        is the argmax."""
+        L = self._operand(logits)
+        if temperature == 0.0:
+            return torch.argmax(L, dim=-1).to(torch.int32)
+        probs = self.softmax(L / float(temperature), stable=True,
+                             backend=backend)
+        rows = probs.reshape(-1, probs.shape[-1]).cpu().numpy() \
+            .astype(np.float64)
+        cum = np.cumsum(rows, axis=-1)
+        u = torch.rand((rows.shape[0],), generator=generator,
+                       dtype=torch.float64).numpy() * cum[:, -1]
+        toks = np.minimum((cum < u[:, None]).sum(axis=-1),
+                          rows.shape[-1] - 1).astype(np.int32)
+        return torch.as_tensor(toks.reshape(tuple(L.shape[:-1])),
+                               device=self.device)
 
     def warmup(self) -> dict:
         raise NotImplementedError("the warm-start manifest is ported with "
@@ -138,27 +215,25 @@ class ServingRuntime:
     def submit_softmax(self, row, stable: bool = True,
                        deadline: "float | None" = None,
                        ragged: bool = False) -> RuntimeFuture:
-        """Queue one softmax row; with ``ragged=True`` it coalesces with
-        rows of *any* length (rows pad to the flush max and the kernels
-        mask per row), so mixed-length traffic still batches."""
-        if not ragged or not stable:
-            raise NotImplementedError(_PLANNER)
+        """Queue one softmax row; same-length rows inside the window
+        flush as ONE ``(K, N)`` 2-launch schedule.  With ``ragged=True``
+        it coalesces with rows of *any* length (rows pad to the flush max
+        and the kernels mask per row), so mixed-length traffic still
+        batches."""
         return self.executor.submit("softmax", self._row(row),
                                     shared={"stable": stable},
                                     key_extra=(bool(stable),),
-                                    deadline=deadline, ragged=True)
+                                    deadline=deadline, ragged=ragged)
 
     def submit_rmsnorm(self, row, w, eps: float = 1e-6,
                        deadline: "float | None" = None,
                        ragged: bool = False) -> RuntimeFuture:
         """Queue one rmsnorm row; coalesces with rows sharing the SAME
         weight vector (identity) and eps."""
-        if not ragged:
-            raise NotImplementedError(_PLANNER)
         return self.executor.submit(
             "rmsnorm", self._row(row).to(torch.float32),
             shared={"w": w, "eps": eps}, key_extra=(id(w), float(eps)),
-            deadline=deadline, ragged=True)
+            deadline=deadline, ragged=ragged)
 
     def submit_sample(self, logits_row, generator: "torch.Generator | None",
                       temperature: float = 1.0,

@@ -170,7 +170,10 @@ def _render(family, part, ragged=True, block_rows=8, ncols=1024):
 
 def test_cuda_render_ragged_softmax_wave():
     src = _render("softmax", 0)
-    assert "min(_row_lens[_r], _n)" in src               # per-row length
+    # per-row length, running on into the zero padding of the row's
+    # bucket past n, as the JAX package's padded blocks do
+    assert "min(_row_lens[_r], _ncols)" in src
+    assert "const float x = _in ? x_row[_c] : (float)0;" in src
     assert src.count("for (int _c = threadIdx.x; _c < _len;") == 2  # 1 sweep/level
     assert "_v = Combine0()(_v, (float)(x));" in src
     assert "_v = Combine1()(_v, (float)(expf(x - _acc0)));" in src

@@ -151,10 +151,17 @@ def test_driver_builds_follow_the_jax_buckets():
 
 
 def test_unported_forms_raise():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        ReductionKernel("float32", "0", "a+b", "x[i]", "float *x")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        ElementwiseKernel("float *x, float *z", "z[i] = x[i]")
+    """The flat and column forms are ported (tests/test_torch_library.py);
+    what still waits is the tuner (Queue 1 item 6) and the latency
+    router behind backend='auto' (Queue 1 item 2)."""
+    red = ReductionKernel("float32", "0", "a+b", "x[i]", "float *x")
+    ek = ElementwiseKernel("float *x, float *z", "z[i] = x[i]")
+    x = torch.ones(8)
+    for k, args in ((red, (x,)), (ek, (x, x)), (_port_wave(), (x,))):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            k.autotune(*args)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+            k(*args, backend="auto")
 
 
 @pytest.fixture
@@ -183,3 +190,62 @@ def test_cuda_kernels_match_eager_on_the_card(cuda_device):
     got = epi(*ref, X, X, backend="cuda", row_lens=L)
     torch.testing.assert_close(got, epi(*ref, X, X, backend="eager",
                                         row_lens=L), rtol=0, atol=1e-4)
+
+
+# ------------------------------------- ragged lengths past the row width
+@pytest.fixture(scope="module")
+def runtimes(tmp_path_factory):
+    """The port's runtime on the CPU and the JAX package's on ``xla``."""
+    from repro import runtime as jrt
+    from repro.core.cache import DiskCache
+    from repro_torch import runtime as rtm
+
+    port = rtm.ServingRuntime(backend="eager", device="cpu")
+    ref = jrt.ServingRuntime(
+        backend="xla", router=jrt.BackendRouter(),
+        manifest=jrt.WarmStartManifest(cache=DiskCache(
+            "torch_ragged", root=tmp_path_factory.mktemp("manifest"))))
+    yield port, ref
+    port.close()
+    ref.close()
+
+
+def test_wave_row_length_past_the_width_reads_the_bucket_padding():
+    """x=[[-1.0]] with row_lens=[2]: the second column is the zero
+    padding of the row's 128-column bucket, as in the JAX package (the
+    row max is 0.0, the shifted exp-sum exp(-1) + 1)."""
+    x, lens = np.array([[-1.0]], np.float32), np.array([2], np.int32)
+    want = (0.0, 1.3678794)
+    for be in ("pallas", "xla"):
+        got = _jax_wave()(jnp.asarray(x), row_lens=lens, backend=be)
+        np.testing.assert_allclose([float(v[0]) for v in got], want,
+                                   rtol=1e-6)
+    got = _port_wave()(torch.from_numpy(x), row_lens=torch.from_numpy(lens))
+    np.testing.assert_allclose([float(v[0]) for v in got], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("family", ["softmax", "softmax.cdf", "rmsnorm"])
+@pytest.mark.parametrize("b,n", [(1, 1), (4, 100), (4, 129)])
+def test_ragged_lengths_past_the_width_match_jax(runtimes, family, b, n):
+    """Row lengths past n, up to and beyond the row's bucket
+    (`bucket_cols(n)`), through the whole 2-launch ragged family: the
+    columns n <= c < min(len, bucket_cols(n)) count with zero-valued
+    operands in both packages; rtol=1e-5, atol=1e-6 (float32 sums in
+    another order)."""
+    port, ref = runtimes
+    rng = np.random.default_rng(b * 1000 + n)
+    x = (rng.standard_normal((b, n)) * 3).astype(np.float32)
+    ncols = dispatch.bucket_cols(n)
+    lens = np.array([n + 1, ncols, ncols + 7, max(1, n - 1)][:b], np.int32)
+    w = rng.standard_normal(n).astype(np.float32)
+    shared = {"w": w, "eps": 1e-6} if family == "rmsnorm" else {}
+    want = np.asarray(ref._run_ragged(
+        family, jnp.asarray(x),
+        {**shared, "w": jnp.asarray(w)} if shared else {}, lens))
+    with dispatch.count_launches() as c:
+        got = port._run_ragged(family, torch.from_numpy(x),
+                               {**shared, "w": torch.from_numpy(w)}
+                               if shared else {}, torch.from_numpy(lens))
+    assert c.delta == 2
+    assert str(want.dtype) == str(got.dtype).replace("torch.", "")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
