@@ -10,8 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 1. environment: the card's name and power limit (``nvidia-smi``), torch,
    CUDA, ``nvcc --version``, jinja2;
 2. build: renders every CUDA kernel instance — of the serving path, the
-   ragged runtime families and the RTCG library (flat elementwise, flat
-   and column reductions, scans) — from the templates under
+   ragged runtime families, the RTCG library (flat elementwise, flat
+   and column reductions, scans), flash attention for each (head dim,
+   dtype, causal) of phases 3 and 7 and RMSNorm for (float32, bfloat16)
+   x (residual or not) — from the templates under
    ``src/repro_torch/csrc`` and compiles them with ``nvcc`` for
    ``sm_90a``, one ``nvcc`` per source, all started together;
 3. every instance against its plain version (the ``eager`` backend) on
@@ -19,7 +21,11 @@ Phases (any failure exits non-zero and prints no result line):
    {1, 1023, 92544, 131073} with mixed row lengths, and row lengths past
    the width; the flat kernels at n up to 2**27, every reducer, the
    column form at (3, 1023), (1023, 3) and (8192, 2048), the four scans
-   inclusive and exclusive at n up to 2**27;
+   inclusive and exclusive at n up to 2**27; flash attention over
+   `FLASH_SHAPES` x causal or not x (float32, bfloat16), the causal
+   cases with ``skip_masked_blocks`` both ways (each case's worst error
+   printed); RMSNorm over `RMS_SHAPES` x dtype x residual, and at
+   (4096, 2048) float32 against the RTCG ``rtcg_rmsnorm``;
 4. the serving path: ``internlm2-1.8b`` at full width in bf16 (random
    weights from a seed) served by ``ContinuousEngine(capacity=8,
    max_len=1024)`` with ``ServingRuntime(backend="cuda")``: 12 prompts
@@ -41,7 +47,26 @@ Phases (any failure exits non-zero and prints no result line):
 6. times: each kernel's device time (``torch.profiler``) and its
    wrapper's time per call (CUDA events), its plain version, its bound,
    and a library yardstick the port never calls — the rows kernels at
-   the serving shape (K=8, V=92544), the library kernels at 2**27.
+   the serving shape (K=8, V=92544), the library kernels at 2**27,
+   flash attention at (1, 16, 8, S, S, 128) bf16 causal for S in {1024,
+   4096} against ``scaled_dot_product_attention``, RMSNorm at (4096,
+   2048) bf16 with and without a residual and at (16384, 2048) against
+   ``F.rms_norm``, these two kernels with the L2 written over before
+   each timed call;
+7. prefill through the flash-attention kernel (``attention_impl=
+   "pallas"``, phase 4's weights and prompts, run after phase 4): (a)
+   ``ContinuousEngine`` + the cuda runtime, where every admission is
+   exactly 24 flash launches (one per layer) and every step still 2
+   ``cuda`` launches, the kernel held against its plain version on the
+   first admission's layer-0 q/k/v and the first admission's logits
+   against the ``flash_jnp`` engine's (relative L2 <= 5e-2, the
+   ``naive`` engine's reading beside it), then the prefill ms p50 per
+   admission of both ``attention_impl`` settings on the served rows, in
+   a pass of its own outside the serving loop; (b) the static ``Engine`` +
+   ``RequestQueue`` in blocks of 4, each left-padded to a width that is
+   no multiple of the kernel's tile, 24 flash launches per block; (c)
+   the norm path: ``layers.norm(use_pallas=True)`` with each of the
+   model's RMSNorm weights plus one fused-residual ``ops.rmsnorm``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -184,17 +209,42 @@ def build(jobs, what: str) -> None:
     log(f"build {what}: {len(jobs)} instances, {len({m.path for m in mods})} "
         f"sources, {time.perf_counter() - t0:.2f} s wall")
     for (label, _, _), m in zip(jobs, mods):
-        usage = [ln.split("ptxas info    : ")[-1] for ln in
-                 m.build_log.splitlines() if "Used" in ln]
+        usage = [ln.split("ptxas info    : ")[-1].strip() for ln in
+                 m.build_log.splitlines() if "Used" in ln or (
+                     "spill" in ln and " 0 bytes spill stores" not in ln)]
         log(f"  {label}: {m.path.relative_to(ROOT) if m.path.is_relative_to(ROOT) else m.path}"
             f" compiled={m.compiled} {' '.join(usage)}")
+
+
+#: head dims of the flash-attention instances phases 3 and 7 use
+FLASH_DIMS = (32, 64, 128)
+
+
+def kernel_jobs() -> list:
+    """(label, name, source) of the hand-written kernels' instances:
+    flash attention for each (head dim, dtype, causal) of phases 3 and 7,
+    RMSNorm for (float32, bfloat16) x (residual or not), w in x's dtype."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    jobs = []
+    for D in FLASH_DIMS:
+        for dt in fa.DTYPES:
+            for causal in (True, False):
+                name, _ = fa.instance(D, dt, causal)
+                jobs.append((name, name, fa.render(D, dt, causal)))
+    for dt in rms.DTYPES:
+        for res in (False, True):
+            name, _ = rms.instance(dt, dt, res)
+            jobs.append((name, name, rms.render(dt, dt, res)))
+    return jobs
 
 
 def build_all(lib: dict) -> None:
     jobs = [(label, k.name, _source(k, ragged))
             for label, k, ragged in instances()]
     jobs += [(label, k.name, _source(k)) for label, k in lib.items()]
-    build(jobs, "kernel instances")
+    build(jobs + kernel_jobs(), "kernel instances")
 
 
 # ------------------------------------------------------------ phase 3
@@ -451,6 +501,138 @@ def compare_library(device, lib: dict) -> dict:
     return worst
 
 
+#: (B, H, Hk, Sq, Skv, D) of the flash-attention checks: the JAX
+#: package's test shapes, a decode-sized and a Sq < Skv call, the static
+#: path's padded block, and the serving model's prefill lengths
+FLASH_SHAPES = [(1, 4, 4, 256, 256, 64), (2, 8, 2, 384, 384, 64),
+                (1, 6, 1, 200, 200, 32), (1, 16, 8, 1, 1, 128),
+                (1, 16, 8, 128, 256, 128), (4, 16, 8, 200, 200, 128),
+                (1, 16, 8, 1024, 1024, 128), (1, 16, 8, 4096, 4096, 128)]
+#: rtol = atol per dtype name: float32 as tests/test_kernels.py:70,
+#: bfloat16 as tests/test_kernels.py:90
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+#: ... and every output row (b, h, r) within this relative L2 error of
+#: the plain version's row.  At S=4096 an output row has entries near
+#: 0.02, under the absolute tolerance above, so a zeroed row or a
+#: dropped kv tile would pass that alone; a sound kernel's rows differ
+#: by rounding only (about 1e-6 in float32 and 5e-3 in bfloat16, where
+#: p is rounded at other running maxima than the plain version's).
+FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+RMS_SHAPES = [(1, 1, 128), (3, 17, 512), (4096, 2048), (16384, 2048)]
+
+
+def _bf16_steps(got, ref) -> float:
+    """The largest |got - ref| in units of one bf16 step of ref."""
+    import torch
+
+    r = ref.double().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(r)) - 7)
+    return float(((got.double() - ref.double()).abs() / ulp).max())
+
+
+def _row_rel(got, ref) -> float:
+    """The largest relative L2 error of an output row (the last axis)."""
+    if ref.numel() == 0:
+        return 0.0
+    g, r = got.double(), ref.double()
+    return float(((g - r).norm(dim=-1)
+                  / r.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _hold(what: str, got, ref, dtype: str, kind: str) -> float:
+    """Hold a hand-written kernel's output against its plain version on
+    the same inputs: the same dtype and shape, finite, and within the
+    tolerance of ``kind`` (``flash``: FLASH_TOL and FLASH_ROW_TOL;
+    ``rms``: float32 at rtol 1e-4, atol 1e-5 as tests/test_kernels.py:98,
+    bfloat16 within one bf16 step of the output).  The max abs error."""
+    import torch
+
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"plain {ref.dtype} {tuple(ref.shape)}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    d = (got.double() - ref.double()).abs()
+    if kind == "flash":
+        tol = FLASH_TOL[dtype]
+        ok = bool((d <= tol + tol * ref.double().abs()).all()) and \
+            _row_rel(got, ref) <= FLASH_ROW_TOL[dtype]
+    elif dtype == "float32":
+        ok = bool((d <= 1e-5 + 1e-4 * ref.double().abs()).all())
+    else:
+        ok = _bf16_steps(got, ref) <= 1.0
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {float(d.max())} beyond "
+                             f"the {kind} {dtype} tolerance")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare_kernels(device) -> dict:
+    """The flash-attention and RMSNorm kernels against their plain
+    versions on the same card tensors over the grid of shapes; each
+    case's worst error printed; the worst per kernel returned."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models.layers import rtcg_rmsnorm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    worst = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    for B, H, Hk, Sq, Skv, D in FLASH_SHAPES:
+        qkv = [torch.randn(shape, generator=gen, device=device)
+               for shape in ((B, H, Sq, D), (B, Hk, Skv, D), (B, Hk, Skv, D))]
+        for dt in fa.DTYPES:
+            q, k, v = (t.to(dt) for t in qkv)
+            name = str(dt).replace("torch.", "")
+            errs, rows = [], []
+            for causal, skip in ((True, True), (True, False), (False, True)):
+                kw = dict(causal=causal, skip_masked_blocks=skip)
+                got = flash_ops.flash_attention(q, k, v, **kw)
+                ref = fa.flash_attention_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                errs.append(_hold(f"flash {(B, H, Hk, Sq, Skv, D)} {name} "
+                                  f"{kw}", got, ref, name, "flash"))
+                rows.append(_row_rel(got, ref))
+            worst["flash_attention"] = max(worst["flash_attention"], *errs)
+            log(f"  flash_attention {(B, H, Hk, Sq, Skv, D)} {name}: max abs "
+                f"err causal+skip {errs[0]:.3e}, causal {errs[1]:.3e}, "
+                f"full {errs[2]:.3e} (rtol=atol={FLASH_TOL[name]}); worst "
+                f"row relative L2 {max(rows):.3e} "
+                f"(<= {FLASH_ROW_TOL[name]})")
+    for shape in RMS_SHAPES:
+        x32, r32 = (torch.randn(shape, generator=gen, device=device)
+                    for _ in range(2))
+        w32 = 1.0 + 0.25 * torch.randn(shape[-1], generator=gen,
+                                       device=device)
+        for dt in (torch.float32, torch.bfloat16):
+            x, r, w = x32.to(dt), r32.to(dt), w32.to(dt)
+            name = str(dt).replace("torch.", "")
+            for res in (None, r):
+                got = rms_ops.rmsnorm(x, w, res)
+                ref = rmsnorm_ref(x, w, res)
+                torch.cuda.synchronize()
+                err = _hold(f"rmsnorm {shape} {name} residual="
+                            f"{res is not None}", got, ref, name, "rms")
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+                extra = (f" ({_bf16_steps(got, ref):.0f} bf16 steps)"
+                         if dt == torch.bfloat16 else "")
+                log(f"  rmsnorm {shape} {name} residual={res is not None}: "
+                    f"max abs err {err:.3e}{extra}")
+        if shape == (4096, 2048):
+            # the same function through the RTCG planner (2 launches)
+            got = rms_ops.rmsnorm(x32, w32)
+            planner = rtcg_rmsnorm(x32, w32, eps=1e-6)
+            torch.cuda.synchronize()
+            err = _hold("rmsnorm (4096, 2048) float32 vs rtcg_rmsnorm", got,
+                        planner, "float32", "rms")
+            log(f"  rmsnorm (4096, 2048) float32 vs the RTCG rtcg_rmsnorm: "
+                f"max abs err {err:.3e}")
+    return worst
+
+
 # ------------------------------------------------------------ phase 4
 def reference_check(device) -> None:
     """The model on the card agrees with the model on the CPU on a small
@@ -484,16 +666,13 @@ KERNELS = ("row_reduction", "rows_elementwise")
 STEP_LAUNCHES = (2, {"cuda": 2}, {k: 1 for k in KERNELS})
 
 
-def main_path(device) -> dict:
-    import numpy as np
+def serving_model(device):
+    """``internlm2-1.8b`` at full width in bf16, random weights from the
+    seed: (config, params) of phases 4 and 7."""
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import dispatch
-    from repro_torch.models import transformer
     from repro_torch.models.schema import count_params, init_params
-    from repro_torch.runtime import ServingRuntime
-    from repro_torch.serving.engine import ContinuousEngine
 
     cfg = get_config("internlm2-1.8b")
     t0 = time.perf_counter()
@@ -504,6 +683,35 @@ def main_path(device) -> dict:
         f"H={cfg.num_heads}/{cfg.num_kv_heads} ff={cfg.d_ff} "
         f"V={cfg.vocab_size} {cfg.dtype}, {count_params(params) / 1e9:.3f} B "
         f"params, init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _captured_admissions(eng) -> list:
+    """Wrap an engine's prefill of one admission (``_admit``) to keep, per
+    admission, its inputs and its logits.  It adds no synchronization:
+    the admissions are timed in a separate pass (``_prefill_profile``)."""
+    rec, admit = [], eng._admit
+
+    def captured(tokens, last_index):
+        logits, cache = admit(tokens, last_index)
+        rec.append({"tokens": tokens, "last": last_index, "logits": logits})
+        return logits, cache
+
+    eng._admit = captured
+    return rec
+
+
+def main_path(device, cfg, params):
+    """-> (kernel launches of the run, the 12 prompts in submission
+    order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.runtime import ServingRuntime
+    from repro_torch.serving.engine import ContinuousEngine
+
     rt = ServingRuntime(backend="cuda", window=1.0, max_batch=64)
     try:
         eng = ContinuousEngine(cfg, params, capacity=8, max_len=1024,
@@ -563,9 +771,10 @@ def main_path(device) -> dict:
         f"{ms(step_s):.2f}; flush ms p50 {ms(flush_s):.3f}; every step 2 "
         f"cuda launches; kernel launches {launches}; model logits' CDF rows "
         f"vs plain max abs err {cdf_err:.3e}")
+    prompts = [r.prompt for r in sorted(res, key=lambda r: r.request_id)]
     breakdown(eng, rng, cfg)
     sample_on_card(cfg, params, rng)
-    return launches
+    return launches, prompts
 
 
 def sample_on_card(cfg, params, rng) -> None:
@@ -647,6 +856,246 @@ def breakdown(eng, rng, cfg, steps: int = 3) -> None:
         "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
         "ported_kernels_ms": ported,
         "top": [{"kernel": k[:120], "ms": t, "calls": n} for k, t, n in top]}}))
+
+
+# ------------------------------------------------------------ phase 7
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _prefill_profile(cfg, params, rows, reps: int = 3) -> dict:
+    """Where one admission's (1, 1024) prefill spends its time, in a pass
+    of its own outside any serving loop: the host ms p50 of one
+    synchronized ``_admit`` per admission row of ``rows`` ((tokens, last
+    index) pairs, after one warm-up call), then the device time per call
+    of the first row under ``torch.profiler`` (all kernels, the
+    flash-attention kernel's share among them) and the three largest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, params, capacity=1, max_len=1024)
+    tokens, last = rows[0]
+    with torch.no_grad():
+        eng._admit(tokens, last)
+        torch.cuda.synchronize()
+        host = []
+        for row in rows:
+            t = time.perf_counter()
+            eng._admit(*row)
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                eng._admit(tokens, last)
+            torch.cuda.synchronize()
+    dev = _device_rows(prof, reps)
+    flash = [t for k, t, _ in dev if "flash_attention" in k]
+    top = sorted(dev, key=lambda r: -r[1])[:3]
+    return {"host_ms": statistics.median(host),
+            "device_ms": sum(t for _, t, _ in dev),
+            "flash_kernel_ms": sum(flash),
+            "top": [(k[:120], t, n) for k, t, n in top]}
+
+
+def prefill_path(device, cfg, params, prompts) -> dict:
+    """Prefill through the flash-attention kernel (``attention_impl=
+    "pallas"``) on both serving paths, with phase 4's weights and prompts:
+    (a) ``ContinuousEngine`` (one (1, 1024) row per admission), (b) the
+    static ``Engine`` + ``RequestQueue`` in blocks of 4, each left-padded
+    to its longest prompt; then (c) the norm path, ``layers.norm(
+    use_pallas=True)`` with every RMSNorm weight of the model and
+    ``ops.rmsnorm`` with a fused residual.  The per-kernel counts are set
+    to 0 just before each path and read just after; the comparisons with
+    the plain versions and the reference engines run after that."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import layers
+    from repro_torch.runtime import ServingRuntime
+    from repro_torch.serving.engine import (ContinuousEngine, Engine,
+                                            RequestQueue)
+
+    L, steps = cfg.num_layers, 24
+    cfg_p = cfg.replace(attention_impl="pallas")
+    step_kernels = {"row_reduction": 1, "rows_elementwise": 1}
+    # (a) the continuous-batching engine
+    captured, flash = [], flash_ops.flash_attention
+
+    def first_call_inputs(q, k, v, **kw):      # layer 0 of the first admission
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), kw))
+        return flash(q, k, v, **kw)
+
+    rt = ServingRuntime(backend="cuda", window=1.0, max_batch=64)
+    try:
+        eng = ContinuousEngine(cfg_p, params, capacity=8, max_len=1024,
+                               runtime=rt)
+        admits = _captured_admissions(eng)
+        for p in prompts:
+            eng.submit(p, max_new=steps)
+        torch.cuda.synchronize()
+        flash_ops.flash_attention = first_call_inputs
+        per_step = []
+        dispatch.reset_counters()            # path (a) starts here
+        while eng.stats()["pending"] or eng.stats()["kv"]["live"]:
+            admitted = eng.stats()["kv"]["admitted"]
+            with dispatch.count_launches() as c:
+                eng.step(temperature=0.8)
+            torch.cuda.synchronize()
+            per_step.append((eng.stats()["kv"]["admitted"] - admitted,
+                             c.delta, c.by_backend, c.by_kernel))
+        cont = dispatch.kernel_launch_counts()   # ... and ends here
+    finally:
+        flash_ops.flash_attention = flash
+        rt.close()
+    for i, (n, delta, by, byk) in enumerate(per_step):
+        want = dict(step_kernels, **({"flash_attention": L * n} if n else {}))
+        if (delta, by, byk) != (2, {"cuda": 2}, want):
+            raise AssertionError(f"continuous step {i} ({n} admissions): "
+                                 f"{delta} launches {by} {byk}, want {want}")
+    if sum(n for n, *_ in per_step) != len(prompts) or \
+            cont.get("flash_attention") != L * len(prompts):
+        raise AssertionError(f"admissions did not each launch the kernel "
+                             f"{L} times: {cont}")
+    res = eng.done
+    if len(res) != len(prompts) or any(r.tokens.shape != (steps,)
+                                       for r in res):
+        raise AssertionError(f"pallas engine: {[r.tokens.shape for r in res]}")
+    q, k, v, kw = captured[0]
+    qkv_err = _hold("flash on layer 0 of the first admission",
+                    flash_ops.flash_attention(q, k, v, **kw),
+                    fa.flash_attention_plain(q, k, v, **kw), "bfloat16",
+                    "flash")
+    first = admits[0]
+    readings = {}
+    for impl in ("flash_jnp", "naive"):
+        ref_eng = ContinuousEngine(cfg.replace(attention_impl=impl), params,
+                                   capacity=1, max_len=1024)
+        with torch.no_grad():
+            readings[impl] = ref_eng._admit(first["tokens"], first["last"])[0]
+        del ref_eng
+    # the served admission rows, timed in a pass of their own per impl
+    rows = [(a["tokens"], a["last"]) for a in admits]
+    profiles = {impl: _prefill_profile(cfg.replace(attention_impl=impl),
+                                       params, rows)
+                for impl in ("pallas", "flash_jnp")}
+    pallas_err = _rel_l2(first["logits"], readings["flash_jnp"])
+    naive_err = _rel_l2(readings["naive"], readings["flash_jnp"])
+    if not pallas_err <= 5e-2:
+        raise AssertionError(f"pallas prefill logits differ from flash_jnp's "
+                             f"by {pallas_err} (relative L2, limit 5e-2)")
+    n_adm = len(per_step)
+    pallas_ms = profiles["pallas"]["host_ms"]
+    jnp_ms = profiles["flash_jnp"]["host_ms"]
+    log(f"prefill (a) ContinuousEngine, pallas: {len(res)} requests x {steps} "
+        f"tokens in {n_adm} steps, {L} flash launches per admission "
+        f"({cont['flash_attention']} in all), every step 2 cuda launches; "
+        f"layer-0 q/k/v kernel vs plain max abs err {qkv_err:.3e}; first "
+        f"admission's logits vs flash_jnp relative L2 {pallas_err:.3e} "
+        f"(naive vs flash_jnp {naive_err:.3e}); prefill ms p50 per admission "
+        f"(its {len(rows)} rows, one synchronized call each, outside the "
+        f"serving loop) pallas {pallas_ms:.2f}, flash_jnp {jnp_ms:.2f}")
+    for impl, prof in profiles.items():
+        log(f"  one (1, 1024) prefill, {impl}: {prof['host_ms']:.2f} ms p50 "
+            f"({len(rows)} rows), device busy {prof['device_ms']:.2f} ms, "
+            f"flash kernel {prof['flash_kernel_ms']:.3f} ms; top "
+            + "; ".join(f"{t:.3f} ms x{n} {k[:60]}" for k, t, n in
+                        prof["top"]))
+    # (b) the static-batch engine over blocks of 4
+    rt = ServingRuntime(backend="cuda", window=1.0, max_batch=64)
+    try:
+        seng = Engine(cfg_p, params, max_len=232, runtime=rt)
+        generate, blocks = seng.generate, []
+
+        def counted(arr, n, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with dispatch.count_launches() as c:
+                out = generate(arr, n, **kw)
+            blocks.append((arr.shape, dict(c.by_kernel),
+                           1e3 * (time.perf_counter() - t)))
+            return out
+
+        seng.generate = counted
+        queue = RequestQueue()
+        for p in prompts:
+            queue.submit(p)
+        # build the runtime's dense sampler schedule for a (4, V) block
+        rt.sample(torch.zeros((4, cfg.vocab_size), device=device),
+                  torch.Generator().manual_seed(SEED), 0.8)
+        torch.cuda.synchronize()
+        dispatch.reset_counters()            # path (b) starts here
+        served = queue.run(seng, batch_size=4, steps=steps, temperature=0.8,
+                           seed=SEED)
+        static = dispatch.kernel_launch_counts()   # ... and ends here
+    finally:
+        rt.close()
+    widths = [max(len(p) for p in prompts[i:i + 4])
+              for i in range(0, len(prompts), 4)]
+    if [shape for shape, _, _ in blocks] != [(4, w) for w in widths] or \
+            any(w % fa.TILE == 0 for w in widths):
+        raise AssertionError(f"blocks {[b[0] for b in blocks]}, widths "
+                             f"{widths}: each a block of 4 at a width that "
+                             f"is no multiple of {fa.TILE}")
+    if any(byk.get("flash_attention") != L for _, byk, _ in blocks) or \
+            static.get("flash_attention") != L * len(blocks):
+        raise AssertionError(f"static blocks' flash launches: "
+                             f"{[b[1] for b in blocks]}")
+    if len(served) != len(prompts) or any(
+            r.tokens.shape != (steps,) or r.padded_len != widths[i // 4]
+            for i, r in enumerate(served)):
+        raise AssertionError("static engine: " + str(
+            [(r.tokens.shape, r.padded_len) for r in served]))
+    log(f"prefill (b) Engine + RequestQueue, pallas: {len(blocks)} blocks of "
+        f"4 at widths {widths}, {L} flash launches each, kernel launches "
+        f"{static}; every request {steps} tokens at its block's width; block "
+        f"ms {[round(ms, 1) for _, _, ms in blocks]}")
+    # (c) the norm path over the embedded tokens of the first block
+    block = np.zeros((4, widths[0]), np.int32)
+    for i, p in enumerate(prompts[:4]):
+        block[i, widths[0] - len(p):] = p
+    x = params["embedding"][torch.from_numpy(block).to(device).long()]
+    slot = params["decoder"]["slot_0"]
+    weights = [slot[n][l] for l in range(L) for n in ("norm1", "norm2")] + \
+        [params["final_norm"]]
+    torch.cuda.synchronize()
+    dispatch.reset_counters()                # path (c) starts here
+    outs = [layers.norm(cfg, {"w": w}, "w", x, use_pallas=True)
+            for w in weights]
+    fused = rms_ops.rmsnorm(x, weights[-1].to(x.dtype), outs[0],
+                            eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    norms = dispatch.kernel_launch_counts()  # ... and ends here
+    if norms != {"rmsnorm": len(weights) + 1}:
+        raise AssertionError(f"norm path launches: {norms}")
+    norm_err = max(_hold("norm(use_pallas=True)", o,
+                         rmsnorm_ref(x, w.to(x.dtype), eps=cfg.norm_eps),
+                         "bfloat16", "rms") for o, w in zip(outs, weights))
+    norm_err = max(norm_err, _hold(
+        "rmsnorm with a fused residual", fused,
+        rmsnorm_ref(x, weights[-1].to(x.dtype), outs[0], eps=cfg.norm_eps),
+        "bfloat16", "rms"))
+    log(f"norm path: {len(weights)} x layers.norm(use_pallas=True) + 1 fused "
+        f"residual over {tuple(x.shape)} bf16, {norms['rmsnorm']} rmsnorm "
+        f"launches; vs plain max abs err {norm_err:.3e}")
+    log(json.dumps({"prefill": {
+        "pallas_prefill_ms_p50": pallas_ms, "flash_jnp_prefill_ms_p50": jnp_ms,
+        "admissions": len(admits), "logits_rel_l2_vs_flash_jnp": pallas_err,
+        "naive_rel_l2_vs_flash_jnp": naive_err,
+        "static_block_ms": [ms for _, _, ms in blocks],
+        "static_widths": widths, "profiles": profiles}}))
+    return {"flash_attention": {"continuous": cont["flash_attention"],
+                                "static": static["flash_attention"]},
+            "rmsnorm": {"norm": norms["rmsnorm"]}}
 
 
 # ------------------------------------------------------------ phase 5
@@ -817,48 +1266,101 @@ def _device_rows(prof, per: int) -> list:
             if e.device_type.name == "CUDA"]
 
 
-def _device_ms(fn, match: "str | None" = None, reps: int = 20) -> float:
+#: the kernel of ``_l2_flush``'s write, as torch.profiler names it
+L2_FLUSH_KERNEL = "FillFunctor<unsigned char>"
+
+
+def _l2_flush(device):
+    """-> a call that writes a 256 MiB byte buffer, five times the H100's
+    50 MB L2, so that the next call reads its inputs from HBM."""
+    import torch
+
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    return lambda: buf.fill_(1)
+
+
+def _device_ms(fn, match: "str | None" = None, reps: int = 20,
+               flush=None, lead: int = 5, tries: int = 3) -> float:
     """Device time per call, after warm-up, from ``torch.profiler``: the
     kernels whose name contains ``match``, or every kernel the call
     launches.  At the main-path shape a wrapper call costs more host
     time than its kernel, so CUDA events around a loop of calls measure
-    the host; the profiler measures the card."""
+    the host; the profiler measures the card.  With ``flush`` (see
+    `_l2_flush`), it runs before each call and its own kernel is left
+    out of the sum.
+
+    The profiler now and then drops the first device events of its
+    window, with no warning.  So the window holds ``lead + reps`` calls;
+    each kernel's launches per call ``k`` is its count over the calls,
+    rounded, and its time per call ``k`` times its mean time per
+    recorded launch.  A profile that lost more than ``lead`` calls'
+    worth of some kernel's launches is taken again, up to ``tries``
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    run = fn if flush is None else (lambda: (flush(), fn()))
     for _ in range(5):
-        fn()
+        run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = sum(t for k, t, _ in _device_rows(prof, reps)
-             if match is None or match in k)
+    calls = lead + reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        rows = [(key, t, n, round(n / calls))
+                for key, t, n in _device_rows(prof, 1)]
+        flushed = [k for key, _, _, k in rows if L2_FLUSH_KERNEL in key]
+        if rows and all(k >= 1 and n >= k * reps for _, _, n, k in rows) \
+                and (flush is None or flushed == [1]):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost device events in "
+                             f"{tries} profiles of {calls} calls: "
+                             f"{[(key[:60], n) for key, _, n, _ in rows]}")
+    ms = sum(t / n * k for key, t, n, k in rows
+             if (flush is None or L2_FLUSH_KERNEL not in key)
+             and (match is None or match in key))
     if not ms > 0:
         raise AssertionError(f"the profiler saw no device time for "
                              f"{match or 'the call'}")
     return ms
 
 
-def _call_ms(fn, reps: int = 50, warmup: int = 10, rounds: int = 5) -> float:
+def _call_ms(fn, reps: int = 50, warmup: int = 10, rounds: int = 5,
+             flush=None) -> float:
     """Median over rounds of CUDA-event time per call, after warm-up: the
-    wrapper's cost per call, host included."""
+    wrapper's cost per call, host included.  With ``flush``, it runs
+    before each call, outside a pair of events around that one call, and
+    the median is over the calls."""
     import torch
 
+    run = fn if flush is None else (lambda: (flush(), fn()))
     for _ in range(warmup):
-        fn()
+        run()
     out = []
     for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
+        if flush is None:
+            a, b = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b) / reps)
+            continue
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for a, b in ev:
+            flush()
+            a.record()
             fn()
-        b.record()
+            b.record()
         torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / reps)
+        out += [a.elapsed_time(b) for a, b in ev]
     return statistics.median(out)
 
 
@@ -1008,6 +1510,99 @@ def library_timings(device, lib: dict, launches: dict, serving: dict,
     return rows
 
 
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
+
+
+def kernel_timings(device, launches: dict, worst: dict) -> list:
+    """The two hand-written kernels: flash attention at the continuous
+    engine's prefill shape (1, 16, 8, 1024, 1024, 128) and at S=4096,
+    bf16, causal; RMSNorm at (4096, 2048) bf16 with and without a
+    residual, and at (16384, 2048).  Device ms (torch.profiler), call ms
+    (CUDA events), the plain version's device ms, the bound and a library
+    call the port never makes (``scaled_dot_product_attention``,
+    ``F.rms_norm``), each with the L2 written over before every call: a
+    (4096, 2048) bf16 RMSNorm moves 32 MB, which the 50 MB L2 would
+    otherwise keep between calls, below the HBM bound it is held to.
+    The first flash and the first RMSNorm case are the ``kernels`` rows;
+    the others print as extras."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    bf16, b2 = torch.bfloat16, 2
+    cases = []
+    for S in (1024, 4096):
+        B, H, Hk, D = 1, 16, 8, 128
+        q = torch.randn((B, H, S, D), generator=gen, device=device).to(bf16)
+        k, v = (torch.randn((B, Hk, S, D), generator=gen,
+                            device=device).to(bf16) for _ in range(2))
+        nbytes = (2 * B * H + 2 * B * Hk) * S * D * b2      # q, o; k, v
+        flops = 4 * B * H * D * S * (S + 1) // 2           # causal pairs
+        cases.append((
+            "flash_attention", f"(1, 16, 8, {S}, {S}, 128) bf16 causal",
+            "flash_attention.cu.j2",
+            "src/repro/kernels/flash_attention/flash_attention.py:130",
+            lambda q=q, k=k, v=v: flash_ops.flash_attention(q, k, v),
+            lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v),
+            fa.instance(D, bf16, True)[0] + "_kernel", nbytes, flops,
+            "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)))
+    D = 2048
+    w = (1.0 + 0.25 * torch.randn(D, generator=gen, device=device)).to(bf16)
+    for R, residual in ((4096, False), (4096, True), (16384, False)):
+        x, r = (torch.randn((R, D), generator=gen, device=device).to(bf16)
+                for _ in range(2))
+        res = r if residual else None
+        n_in = 2 if residual else 1
+        cases.append((
+            "rmsnorm", f"({R}, {D}) bf16" + (" + residual" if residual
+                                             else ""),
+            "rmsnorm.cu.j2", "src/repro/kernels/rmsnorm/rmsnorm.py:60",
+            lambda x=x, res=res: rms_ops.rmsnorm(x, w, res),
+            lambda x=x, res=res: rmsnorm_ref(x, w, res),
+            rms.instance(bf16, bf16, residual)[0],
+            (n_in + 1) * R * D * b2 + D * b2, 0,
+            None if residual else "torch.nn.functional.rms_norm",
+            None if residual else (lambda x=x: F.rms_norm(x, (D,), w,
+                                                          1e-6))))
+    flush = _l2_flush(device)
+    rows, extras = [], []
+    for (name, shape, source, replaces, run, plain, match, nbytes, flops,
+         lib_name, libfn) in cases:
+        ms = _device_ms(run, match=match, flush=flush)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        rec = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/" + source,
+               "replaces": replaces, "launches": sum(launches[name].values()),
+               "launches_by_path": launches[name],
+               "max_abs_err": worst[name], "ms": ms,
+               "plain_ms": _device_ms(plain, flush=flush),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops > t_bytes else "bytes",
+               "library": lib_name,
+               "library_ms": (_device_ms(libfn, flush=flush) if libfn
+                              else None),
+               "call_ms": _call_ms(run, reps=20, rounds=3, flush=flush),
+               "shape": shape,
+               "bytes": nbytes, "flops": flops}
+        (extras if any(r["name"] == name for r in rows) else rows).append(rec)
+        log(f"time {name} at {shape}: device {ms:.4f} ms (call "
+            f"{rec['call_ms']:.4f} ms), plain device {rec['plain_ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.5f} ms ({nbytes} bytes / 3.35 TB/s "
+            f"= {t_bytes:.5f}; {flops} flops / 989 TFLOP/s = {t_ops:.5f}), "
+            f"{lib_name} {rec['library_ms']} ms")
+    log(json.dumps({"kernel_extras": extras}))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1031,11 +1626,17 @@ def main() -> int:
     log("compare: cuda kernels against the eager plain versions")
     worst = compare_all(device)
     lib_worst = compare_library(device, lib)
+    log("compare: flash attention and RMSNorm against their plain versions")
+    kernel_worst = compare_kernels(device)
     reference_check(device)
-    launches = main_path(device)
+    cfg, params = serving_model(device)
+    launches, prompts = main_path(device, cfg, params)
+    kernel_launches = prefill_path(device, cfg, params, prompts)
+    del params
     lib_launches = library_path(device)
     rows = timings(device, launches, lib_launches, worst) + \
-        library_timings(device, lib, lib_launches, launches, lib_worst)
+        library_timings(device, lib, lib_launches, launches, lib_worst) + \
+        kernel_timings(device, kernel_launches, kernel_worst)
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

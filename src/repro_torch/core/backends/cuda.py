@@ -54,7 +54,7 @@ from repro_torch.core.backends.base import (Backend, bind_operand,
                                             bind_row_lens, check_arity,
                                             operand_device)
 from repro_torch.core.platform import bind_flat_operand, canonical_dtype
-from repro_torch.core.rtcg import CudaSourceModule
+from repro_torch.core.rtcg import CudaSourceModule, check_launch
 from repro_torch.core.templates import KernelTemplate
 
 _ROW_REDUCE_TMPL = KernelTemplate.from_file("row_reduce", "row_reduce.cu.j2")
@@ -418,9 +418,7 @@ class CudaBackend(Backend):
 
     @staticmethod
     def _check(err: int, kir) -> None:
-        if err != 0:
-            raise RuntimeError(f"CUDA kernel {kir.name!r} failed to launch: "
-                               f"cudaError {err}")
+        check_launch(err, kir.name)
 
     def build_reduction_rows(self, kir) -> Callable:
         dtypes = [canonical_dtype(o["dtype"]) for o in kir.outs]

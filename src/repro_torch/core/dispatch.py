@@ -25,14 +25,15 @@ harness is ported (ROADMAP Queue 1 item 2).
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Any, Callable
 
 from repro_torch.core.cache import LRUCache
 from repro_torch.core.platform import LANES
 
-_DEFAULT_CACHE_SIZE = int(os.environ.get("REPRO_DRIVER_CACHE_SIZE", "256"))
+#: LRU entries (the JAX package's default; the port reads no
+#: environment variable of the JAX package's)
+_DEFAULT_CACHE_SIZE = 256
 
 _driver_cache = LRUCache(maxsize=_DEFAULT_CACHE_SIZE)
 

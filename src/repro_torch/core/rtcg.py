@@ -117,6 +117,14 @@ def nvcc_version() -> str:
                           text=True, check=True).stdout
 
 
+def check_launch(err: int, name: str) -> None:
+    """Raise on the non-zero CUDA error code a launch function returned
+    (a refused launch never runs, and no later synchronize reports it)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
+                           f"cudaError {err}")
+
+
 class CudaSourceModule:
     """Compile CUDA C source into a loaded shared library.
 

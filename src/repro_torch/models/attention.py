@@ -6,8 +6,9 @@ KV head ``H // Hk`` times (``repeat_interleave``, as ``jnp.repeat``),
 the causal and ``col <= pos`` masks with ``NEG_INF``.  Inside the model
 the softmax is ``torch.softmax`` — what the jitted JAX path runs
 (``jax.nn.softmax`` under trace).  No library attention kernel is used.
-``attention_impl="pallas"`` (the hand-written flash kernel) is ROADMAP
-Queue 2 item 1.
+``attention_impl="pallas"`` runs prefill through the hand-written
+flash-attention kernel (`repro_torch.kernels.flash_attention`): on a
+CUDA tensor the CUDA kernel, on a CPU tensor its plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
 
@@ -109,9 +111,10 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool):
     scale = cfg.dh ** -0.5
     impl = cfg.attention_impl
     if impl == "pallas":
-        raise NotImplementedError(
-            "attention_impl='pallas' (the flash-attention kernel) is "
-            "ported with ROADMAP Queue 2 item 1")
+        # the kernel's layout is (B, H, S, D): strided views, no copies
+        o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=causal)
+        return o.transpose(1, 2)
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, scale=scale)
     return flash_attention_jnp(q, k, v, causal=causal, scale=scale,

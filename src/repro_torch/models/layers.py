@@ -7,6 +7,7 @@ RoPE with split — not interleaved — halves, swiglu or tanh-gelu MLPs).
 `fused_softmax` and `rtcg_rmsnorm` are library functions over the fusion
 planner (2 generated launches each); the model itself keeps
 ``torch.softmax``, as the jitted JAX model keeps ``jax.nn.softmax``.
+``norm(use_pallas=True)`` runs the fused RMSNorm kernel.
 """
 
 from __future__ import annotations
@@ -16,16 +17,27 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.platform import canonical_dtype
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 
-def norm(cfg: ModelConfig, p: dict, name: str, x):
+def norm(cfg: ModelConfig, p: dict, name: str, x, *, use_pallas: bool = False,
+         use_rtcg: bool = False):
+    """RMSNorm (or LayerNorm) over the last axis.  ``use_rtcg`` runs the
+    planner-backed `rtcg_rmsnorm`; ``use_pallas`` the fused RMSNorm
+    kernel (`repro_torch.kernels.rmsnorm`), with the weight cast to x's
+    dtype first, as the JAX package does."""
     w = p[name]
-    xf = x.float()
     if cfg.norm_type == "layernorm":
+        xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
         return (y * w + p[name + "_b"]).to(x.dtype)
+    if use_rtcg:
+        return rtcg_rmsnorm(x, w, eps=cfg.norm_eps)
+    if use_pallas:
+        return rmsnorm_ops.rmsnorm(x, w.to(x.dtype), eps=cfg.norm_eps)
+    xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + cfg.norm_eps) * w).to(x.dtype)
 

@@ -1,18 +1,20 @@
-"""Continuous-batching serving engine: token-granular decode over a slot pool.
+"""Serving engines: static-batch prefill + decode, and token-granular
+continuous batching over a slot pool.
 
-The port of the JAX package's ``serving/engine.py`` ``ContinuousEngine``
-and ``ServedResult``.  The static-batch ``Engine`` and ``RequestQueue``
-wait for the fusion planner (their runtime sampling path goes through
-it; ROADMAP Queue 1 item 4).
+The port of the JAX package's ``serving/engine.py``: the static-batch
+`Engine` with its prompt-granular `RequestQueue`, and the continuous-
+batching `ContinuousEngine`.  A JAX key becomes an explicit
+`torch.Generator` seeded from the same seed (the draws differ from the
+JAX package's; greedy decoding is identical).
 
-The engine runs on the card unless the caller passes ``device="cpu"``;
-with no GPU and no ``device``, it raises.
+The engines run on the card unless the caller passes ``device="cpu"``;
+with no GPU and no ``device``, they raise.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,6 +46,127 @@ class ServedResult:
         """Original prompt + generated tokens, padding stripped."""
         return np.concatenate([np.asarray(self.prompt, np.int32),
                                np.asarray(self.tokens, np.int32)])
+
+
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, steps)
+    steps: int
+    prefill_len: int
+
+
+def _device_for(params, device) -> torch.device:
+    """The device the engine serves on (`resolve_device`), which must be
+    where the parameters lie."""
+    dev = resolve_device(device)
+    if params["embedding"].device.type != dev.type:
+        raise ValueError(f"params lie on {params['embedding'].device}, "
+                         f"the engine serves on {dev}")
+    return dev
+
+
+class Engine:
+    """Static-batch engine: one prefill of a ``(B, S)`` block, then
+    ``steps - 1`` decode steps over the whole batch, greedy or
+    temperature sampling.  With a `ServingRuntime` attached, temperature
+    sampling runs its softmax through the runtime (one 2-launch schedule
+    for the logits block per step)."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
+                 runtime=None, device=None):
+        self.device = _device_for(params, device)
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.runtime = runtime  # optional repro_torch.runtime.ServingRuntime
+
+    def _sample(self, logits, generator: torch.Generator,
+                temperature: float):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.runtime is not None:
+            # runtime-routed path: the softmax of the whole logits block
+            # in one schedule, one host draw per row from ``generator``
+            return self.runtime.sample(logits, generator, temperature)
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0] \
+            .to(torch.int32)
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, steps: int, *,
+                 temperature: float = 0.0, seed: int = 0) -> GenerationResult:
+        """prompts: (B, S) int32.  Greedy/temperature decode for ``steps``
+        tokens; the draws come from one generator seeded with ``seed`` (a
+        CPU generator for the runtime's host draw, else one on the
+        logits' device)."""
+        B, S = prompts.shape
+        if S + steps > self.max_len:
+            raise ValueError(f"{S} prompt + {steps} new tokens exceed "
+                             f"max_len {self.max_len}")
+        tokens = torch.from_numpy(np.asarray(prompts, np.int32)) \
+            .to(self.device)
+        logits, cache = transformer.prefill(self.cfg, self.params,
+                                            {"tokens": tokens},
+                                            max_len=self.max_len)
+        gen = torch.Generator(
+            "cpu" if self.runtime is not None else self.device) \
+            .manual_seed(seed)
+        tok = self._sample(logits, gen, temperature).to(self.device)[:, None]
+        out = [tok]
+        for i in range(steps - 1):
+            logits, cache = transformer.decode_step(self.cfg, self.params,
+                                                    cache, tok, S + i)
+            tok = self._sample(logits, gen, temperature) \
+                .to(self.device)[:, None]
+            out.append(tok)
+        return GenerationResult(torch.cat(out, dim=1).cpu().numpy(), steps, S)
+
+
+@dataclass
+class RequestQueue:
+    """Prompt-granular continuous batching: keeps the static batch full
+    by refilling finished slots from a pending queue between
+    ``generate`` calls.  ``done`` holds `ServedResult` records with each
+    request's id, original prompt and the block width it was served at
+    (`result_for` maps an id back to its result)."""
+    pending: list = field(default_factory=list)   # (request_id, prompt)
+    done: list = field(default_factory=list)      # ServedResult
+    _next_id: int = 0
+
+    def submit(self, prompt: np.ndarray,
+               request_id: "int | None" = None) -> int:
+        """Queue one prompt; returns the id its result will carry."""
+        if request_id is None:
+            request_id = self._next_id
+        self._next_id = max(self._next_id, request_id) + 1
+        self.pending.append((request_id, np.asarray(prompt, np.int32)))
+        return request_id
+
+    def run(self, engine: Engine, batch_size: int, steps: int,
+            pad_id: int = 0, temperature: float = 0.0, seed: int = 0):
+        """Serve the queue in blocks of ``batch_size``, each left-padded
+        to its longest prompt."""
+        while self.pending:
+            block = [self.pending.pop(0)
+                     for _ in range(min(batch_size, len(self.pending)))]
+            S = max(len(p) for _, p in block)
+            arr = np.full((len(block), S), pad_id, np.int32)
+            for i, (_, p) in enumerate(block):
+                arr[i, S - len(p):] = p   # left-pad
+            res = engine.generate(arr, steps, temperature=temperature,
+                                  seed=seed)
+            for i, (rid, p) in enumerate(block):
+                self.done.append(ServedResult(
+                    request_id=rid, prompt=p, prompt_len=len(p),
+                    tokens=np.asarray(res.tokens[i]), padded_len=S))
+        return self.done
+
+    def result_for(self, request_id: int) -> "ServedResult | None":
+        """Look a finished request up by the id `submit` returned."""
+        for r in self.done:
+            if r.request_id == request_id:
+                return r
+        return None
 
 
 class _LiveRequest:
@@ -91,10 +214,7 @@ class ContinuousEngine:
                 "per slot)")
         if cfg.is_encdec:
             raise ValueError("ContinuousEngine does not serve enc-dec models")
-        self.device = resolve_device(device)
-        if params["embedding"].device.type != self.device.type:
-            raise ValueError(f"params lie on {params['embedding'].device}, "
-                             f"the engine serves on {self.device}")
+        self.device = _device_for(params, device)
         self.cfg = cfg
         self.params = params
         self.capacity = int(capacity)
